@@ -7,16 +7,27 @@ Run from the root of the repository:
 
 Phases, each of which raises on failure:
   1. the card's name and power limit, torch / CUDA / nvcc versions;
-  2. build the three CUDA kernels from ``pngloss_tpu_torch/csrc``;
-  3. each kernel against its plain PyTorch version on the card, exact, on
-     small shapes that reach every branch (bpp 1-4, strengths 0/3/19/255,
-     bleed 1/2/32767, transparency, ragged masks) and at the main path's
-     full shapes; times each kernel beside its plain version;
+  2. build the CUDA kernels from ``pngloss_tpu_torch/csrc``;
+  3. each kernel (the image kernel in its CLI and its adaptive variant)
+     against its plain PyTorch version on the card, exact, on small shapes
+     that reach every branch (bpp 1-4, strengths 0/3/19/255, bleed
+     1/2/32767, transparency, ragged masks, rows failing the MSAD
+     self-check) and at the main path's full shapes; times each kernel
+     beside its plain version;
   4. PNG bytes of ``compress_many(device="cuda")`` against the scalar
-     reference model plus the host encoder, on small mixed images;
+     reference model plus the host encoder, on small mixed images; and
+     embedding mode (``optimize_for_average_filter``,
+     ``optimize_rgba_batch(use_row_filters=False)``) against the scalar
+     model, on small images one batch of which takes the per-row fallback;
   5. the main path: ``compress_many`` on 16 synthetic 512x512 RGB images
      at -s 19 through the kernels (launch counters must rise), outputs
-     decode, a second run gives the same bytes, -s 0 is pixel-lossless.
+     decode, a second run gives the same bytes, -s 0 is pixel-lossless;
+  6. embedding mode at full size: ``optimize_rgba_batch(use_row_filters=
+     False)`` on 16 512x512 RGB images, some of which pass the speculation
+     and some need the fallback (launch counters must rise); the adaptive
+     image kernel against its plain version over all 511 rows, ok
+     included; the output equals the per-row kernel path on every image,
+     and every row's filter is libpng's MSAD choice for that row.
 
 Prints the card line and one JSON line of per-kernel results before the
 last line, ``{"ok": true, "device": {...}}``. Without CUDA, or when any
@@ -42,7 +53,10 @@ KERNELS = (
      "pngloss_tpu/ops/pallas_row.py:194"),
     ("image", "pngloss_tpu_torch/csrc/image.cu",
      "pngloss_tpu/ops/pallas_image.py:107"),
+    ("image_adaptive", "pngloss_tpu_torch/csrc/image.cu",
+     "pngloss_tpu/ops/pallas_image.py:107 (adaptive=True)"),
 )
+EMBED_SEED, EMBED_SMALL_SEED, EMBED_SMALL_STRENGTH = SEED + 5, 700, 45
 
 
 def card_line() -> str:
@@ -119,7 +133,8 @@ def check_kernels(device) -> dict[str, int]:
     from pngloss_tpu_torch.ops import hist, image, row
 
     rng = np.random.default_rng(SEED + 1)
-    errs = {"hist": 0, "row": 0, "image": 0}
+    errs = {"hist": 0, "row": 0, "image": 0, "image_adaptive": 0}
+    oks = set()
     for bpp in (1, 2, 3, 4):
         rows = rng.integers(0, 256, (3, 8, 9 * bpp)).astype(np.uint8)
         rows[1, :, :4] = 7                               # hot bins
@@ -147,9 +162,38 @@ def check_kernels(device) -> dict[str, int]:
                     st["e0"], st["e1"], st["hist"])
             errs["image"] = max(errs["image"], _max_err(
                 image.image_rows(*args), image.image_rows_ref(*args)))
+            want = image.image_rows_ref(*args, adaptive=True)
+            errs["image_adaptive"] = max(errs["image_adaptive"], _max_err(
+                image.image_rows(*args, adaptive=True), want))
+            oks.update(want[2].tolist())
     if any(errs.values()):
         raise AssertionError(f"kernel != plain version: {errs}")
+    if oks != {0, 1}:
+        raise AssertionError(f"small adaptive inputs gave ok {oks}, not both")
     return errs
+
+
+def timed_entry(name, fn, ref, shape: str, reps: int, log) -> dict:
+    """A kernel (fn) against its plain version (ref) on the same inputs:
+    exact, or it raises. The plain version runs once and is timed by that
+    run; the kernel by CUDA events over reps calls after a warm-up."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = ref()
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = _max_err(fn(), want)
+    if err:
+        raise AssertionError(f"{name} at {shape}: max abs err {err}")
+    ms = cuda_ms(fn, reps)
+    log(f"  {name:5s} {shape:28s} kernel {ms:10.3f} ms  "
+        f"plain {plain_ms:10.3f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=shape)
 
 
 def time_kernels(device, log) -> dict[str, dict]:
@@ -172,22 +216,7 @@ def time_kernels(device, log) -> dict[str, dict]:
     out = {}
 
     def entry(name, fn, ref, shape, reps):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = ref()
-        end.record()
-        end.synchronize()
-        plain_ms = start.elapsed_time(end)
-        err = _max_err(fn(), want)
-        if err:
-            raise AssertionError(f"{name} at {shape}: max abs err {err}")
-        ms = cuda_ms(fn, reps)
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         shape=shape)
-        log(f"  {name:5s} {shape:28s} kernel {ms:10.3f} ms  "
-            f"plain {plain_ms:10.3f} ms")
+        out[name] = timed_entry(name, fn, ref, shape, reps, log)
 
     entry("hist", lambda: hist.original_frequencies(rows, bpp, w_real, h_real),
           lambda: hist.original_frequencies_ref(rows, bpp, w_real, h_real),
@@ -200,9 +229,8 @@ def time_kernels(device, log) -> dict[str, dict]:
     args = (s, 2, orig0, z, ze, ze, zh, ofreq, w_real)
     entry("row", lambda: row.row_attempt(*args),
           lambda: row.row_attempt_ref(*args), f"{b}x1x{w}x{bpp} (row 0)", 10)
-    (q0, h0, e00, e10), _ = row0(s, 2, orig0, ofreq, w_real)
-    args = (s, 2, w_real, ofreq, rows, q0.contiguous(), e00.contiguous(),
-            e10.contiguous(), h0.contiguous())
+    c0, _ = row0(s, 2, orig0, ofreq, w_real)
+    args = (s, 2, w_real, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
     entry("image", lambda: image.image_rows(*args),
           lambda: image.image_rows_ref(*args),
           f"{b}x{SIDE}x{w}x{bpp} (rows 1-{SIDE - 1})", 2)
@@ -237,6 +265,185 @@ def check_end_to_end(device) -> None:
         if got[i].unwrap() != want:
             raise AssertionError(f"end-to-end bytes differ for image {i} "
                                  f"({specs[i]})")
+
+
+def speculate(rows, bpp: int, strength: int, device):
+    """Embedding mode's speculation on same-shaped planes rows (B, H, W*bpp)
+    uint8: pre-pass, row 0, the adaptive image kernel. Returns (ofreq,
+    row-0 carry, row-0 filters, (qrows, filt, ok))."""
+    import torch
+
+    from pngloss_tpu_torch.ops import hist, image
+    from pngloss_tpu_torch.ops.optimize_gpu import row0
+
+    b, h, wb = rows.shape
+    w = wb // bpp
+    s = _i32([strength] * b, device)
+    wr, hr = _i32([w] * b, device), _i32([h] * b, device)
+    ofreq = hist.original_frequencies(rows, bpp, wr, hr)
+    c0, f0 = row0(s, 2, rows[:, 0].reshape(b, w, bpp).to(torch.int32),
+                  ofreq, wr)
+    return ofreq, c0, f0, image.image_rows(s, 2, wr, ofreq, rows, c0.qprev,
+                                           c0.e0, c0.e1, c0.hist,
+                                           adaptive=True)
+
+
+def check_embedding_small(device) -> list[int]:
+    """Phase 4b: embedding mode against the scalar model on small images.
+    The seed-700 (4, 6, 7*3) batch at -s 45 mixes images whose speculation
+    passes with images that take the per-row fallback. Returns its ok."""
+    import torch
+
+    from pngloss_tpu.core.reference import optimize_rgba
+    from pngloss_tpu_torch.pipeline import (
+        optimize_for_average_filter,
+        optimize_rgba_batch,
+    )
+
+    rows = np.random.default_rng(EMBED_SMALL_SEED).integers(
+        0, 256, size=(4, 6, 7 * 3), dtype=np.uint8)
+    ok = speculate(torch.as_tensor(rows, device=device), 3,
+                   EMBED_SMALL_STRENGTH, device)[3][2].tolist()
+    if set(ok) != {0, 1}:
+        raise AssertionError(f"seed-700 speculation gave ok {ok}")
+    rgbas = [np.concatenate([r.reshape(6, 7, 3),
+                             np.full((6, 7, 1), 255, np.uint8)], -1)
+             for r in rows]
+    qs, fs = optimize_rgba_batch(rgbas, EMBED_SMALL_STRENGTH,
+                                 use_row_filters=False, device=device)
+    for i, (rgba, q, f) in enumerate(zip(rgbas, qs, fs)):
+        q_ref, f_ref = optimize_rgba(rgba, EMBED_SMALL_STRENGTH, 2, False)
+        if not (np.array_equal(q, q_ref) and np.array_equal(f, f_ref)):
+            raise AssertionError(f"embedding: seed-700 image {i} differs "
+                                 "from the scalar model")
+    rng = np.random.default_rng(SEED + 6)
+    specs = ((17, 23, "rgb", 19), (12, 9, "gray", 45), (9, 14, "rgba", 40),
+             (1, 30, "rgb", 19), (11, 8, "gray_alpha", 3))
+    for h, w, kind, strength in specs:
+        rgba = synthetic_rgb(rng, 1, h, w)[0]
+        rgba[..., :3] ^= rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        if kind in ("gray", "gray_alpha"):
+            rgba[..., 0] = rgba[..., 2] = rgba[..., 1]
+        if kind in ("rgba", "gray_alpha"):
+            rgba[::3, ::2, 3] = 0
+            rgba[1::3, 1::2, 3] = 128
+        got = optimize_for_average_filter(rgba, strength, device=device)
+        if not np.array_equal(got, optimize_rgba(rgba, strength, 2,
+                                                 False)[0]):
+            raise AssertionError(f"optimize_for_average_filter differs from "
+                                 f"the scalar model on {(h, w, kind)}")
+    return ok
+
+
+def embedding_batch(rng) -> np.ndarray:
+    """(16, 512, 512, 4) opaque RGBA: 8 smooth images (gradients plus
+    +-12 noise), whose speculation passes at -s 19, and 8 of uniform
+    noise, some of which have a row with no passing filter."""
+    n = N_IMAGES // 2
+    noise = rng.integers(0, 256, (N_IMAGES - n, SIDE, SIDE, 4))
+    noise[..., 3] = 255
+    return np.concatenate([synthetic_rgb(rng, n, SIDE, SIDE),
+                           noise.astype(np.uint8)])
+
+
+def run_embedding(device, card: str, log) -> tuple[dict, dict]:
+    """Phase 6: embedding mode at full size. Returns the kernel launch
+    counts of its first run and the adaptive image kernel's timing."""
+    import torch
+
+    from pngloss_tpu.core.reference import adaptive_filter_for_row
+    from pngloss_tpu_torch.ops import hist, image, row
+    from pngloss_tpu_torch.ops.optimize_gpu import optimize_rows
+    from pngloss_tpu_torch.pipeline import optimize_rgba_batch
+
+    rgba = embedding_batch(np.random.default_rng(EMBED_SEED))
+    b, bpp = N_IMAGES, 3
+    log(f"  inputs: images 0-{N_IMAGES // 2 - 1} smooth, "
+        f"{N_IMAGES // 2}-{N_IMAGES - 1} uniform noise, {SIDE}x{SIDE} RGB, "
+        f"seed {EMBED_SEED}, -s {STRENGTH}")
+    torch.cuda.synchronize()
+    hist.LAUNCHES = row.LAUNCHES = image.ADAPTIVE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    q1, f1 = optimize_rgba_batch(list(rgba), STRENGTH, use_row_filters=False,
+                                 device=device)
+    wall = time.perf_counter() - t0
+    launches = {"hist": hist.LAUNCHES, "row": row.LAUNCHES,
+                "image_adaptive": image.ADAPTIVE_LAUNCHES}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    t0 = time.perf_counter()
+    q2, f2 = optimize_rgba_batch(list(rgba), STRENGTH, use_row_filters=False,
+                                 device=device)
+    wall2 = time.perf_counter() - t0
+    for i in range(b):
+        if not (np.array_equal(q1[i], q2[i]) and np.array_equal(f1[i], f2[i])):
+            raise AssertionError(f"embedding run 2 differs on image {i}")
+
+    # the speculation and the fallback apart, on the same planes
+    rows = torch.as_tensor(rgba[..., :3].reshape(b, SIDE, SIDE * bpp),
+                           device=device)
+    start = torch.cuda.Event(enable_timing=True)
+    mid = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    ofreq, c0, f0, (qr, fr, ok) = speculate(rows, bpp, STRENGTH, device)
+    mid.record()
+    ok = ok.cpu().numpy()
+    bad, good = np.flatnonzero(ok == 0), np.flatnonzero(ok)
+    log(f"  speculation ok per image: {ok.tolist()}")
+    if not (len(bad) and len(good)):
+        raise AssertionError("the batch does not take both branches")
+    s = _i32([STRENGTH] * b, device)
+    wr = _i32([SIDE] * b, device)
+    orig = rows.view(b, SIDE, SIDE, bpp).to(torch.int32)
+    sel = torch.as_tensor(bad, device=device)
+    attempts = row.LAUNCHES
+    optimize_rows(s[sel], 2, orig[sel], ofreq[sel], wr[sel])
+    end.record()
+    end.synchronize()
+    attempts = row.LAUNCHES - attempts
+    spec_ms, fall_ms = start.elapsed_time(mid), mid.elapsed_time(end)
+
+    # the per-row kernel path on every image: the speculation on the ok
+    # images, and the entry point's output on all, must equal it
+    qp, fp = optimize_rows(s, 2, orig, ofreq, wr)
+    qp, fp = qp.cpu().numpy(), fp.cpu().numpy()
+    spec_q = torch.cat([c0.qprev[:, None], qr], 1).cpu().numpy()
+    spec_f = torch.cat([f0[:, None], fr.long()], 1).cpu().numpy()
+    for i in good:
+        if not (np.array_equal(spec_q[i], qp[i])
+                and np.array_equal(spec_f[i], fp[i])):
+            raise AssertionError(f"speculation != per-row path on ok "
+                                 f"image {i}")
+    for i in range(b):
+        if not (np.array_equal(q1[i][..., :3], qp[i])
+                and np.array_equal(f1[i], fp[i])):
+            raise AssertionError(f"embedding output != per-row path on "
+                                 f"image {i}")
+        work = q1[i][..., :3].reshape(SIDE, SIDE * bpp)
+        for y in range(SIDE):
+            above = work[y - 1] if y else None
+            if adaptive_filter_for_row(above, work[y], bpp, SIDE) != f1[i][y]:
+                raise AssertionError(f"image {i} row {y}: filter {f1[i][y]} "
+                                     "is not libpng's MSAD choice")
+    mp = b * SIDE * SIDE / 1e6
+    log(f"  embedding on {card}: {b} x {SIDE}x{SIDE} RGB at -s {STRENGTH}: "
+        f"run 1 {wall:.3f} s ({mp / wall:.3f} MP/s), run 2 {wall2:.3f} s "
+        f"({mp / wall2:.3f} MP/s)")
+    log(f"  speculation {spec_ms:.3f} ms (CUDA events: pre-pass, row 0, "
+        f"adaptive image kernel), fallback {fall_ms:.3f} ms for "
+        f"{len(bad)} images x {SIDE} rows, {attempts} row attempts "
+        f"({attempts / SIDE:.3f} per row)")
+    log(f"  launches: {launches}")
+
+    args = (s, 2, wr, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
+    timing = timed_entry(
+        "image_adaptive", lambda: image.image_rows(*args, adaptive=True),
+        lambda: image.image_rows_ref(*args, adaptive=True),
+        f"{b}x{SIDE}x{SIDE}x{bpp} (rows 1-{SIDE - 1}, embedding batch)", 2,
+        log)
+    return launches, timing
 
 
 def run_main_path(device, card: str, log) -> dict[str, int]:
@@ -324,8 +531,18 @@ def main() -> int:
     log(f"[4] end-to-end bytes == scalar reference model "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    t0 = time.perf_counter()
+    ok = check_embedding_small(device)
+    log(f"[4b] embedding mode == scalar reference model; seed-700 "
+        f"speculation ok {ok} ({time.perf_counter() - t0:.1f} s)")
+
     log("[5] main path")
     launches = run_main_path(device, card, log)
+
+    log("[6] embedding mode at full size")
+    embed_launches, timing["image_adaptive"] = run_embedding(device, card,
+                                                             log)
+    launches["image_adaptive"] = embed_launches["image_adaptive"]
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name],

@@ -1,11 +1,14 @@
-"""State carried across the optimizer's stage boundary, from the JAX layout.
+"""State carried from one row to the next, and its JAX layout.
 
-The system has no weights: what crosses from row 0 into the image stage is
-the row-0 winner's state. ``pngloss_tpu.ops.optimize_pallas.
+The system has no weights: what crosses from row to row (from row 0 into
+the image stage, and from row to row of embedding mode's per-row path) is
+the winner's state, a ``Carry``. ``pngloss_tpu.ops.optimize_pallas.
 optimize_batch_pallas_t(..., return_carry=True)`` returns it in the TPU
-layout (transposed batch lanes, stride-8 dither columns); ``carry_from_jax``
-turns it into the port's layout, so the port's image stage can be seeded
-from the JAX row 0 and checked on its own.
+layout (transposed batch lanes, stride-8 dither columns) after the rows it
+ran: after row 0 when given one row, after row k-1 when given k rows, in
+either mode. ``carry_from_jax`` turns it into the port's layout, so the
+port's image stage and per-row path can be seeded from the JAX package at
+any row and checked on their own.
 """
 
 from __future__ import annotations

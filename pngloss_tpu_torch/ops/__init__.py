@@ -1,6 +1,7 @@
 """Device entry point of the optimizer.
 
-``optimize_batch_auto`` runs the CLI-mode optimizer on the given device:
+``optimize_batch_auto`` runs the optimizer, in CLI mode or embedding
+mode, on the given device:
 a CPU device runs the plain PyTorch versions of the kernels, a CUDA device
 runs the kernels. Nothing here imports JAX, and nothing builds a kernel at
 import time.
@@ -32,13 +33,10 @@ def optimize_batch_auto(rows, strength, bleed: int = 2, *, bpp: int, device,
 
     rows: (B, H, W*bpp) uint8, numpy or tensor. strength: int or per-image
     (B,) values. w_real/h_real: per-image real sizes of padded planes
-    (ragged batching). Returns ((B, H, W*bpp) uint8, (B, H) int8) tensors
-    on ``device``. Embedding mode (``use_row_filters=False``) is not
-    ported yet and raises NotImplementedError.
+    (ragged batching). use_row_filters=False is embedding mode: every row
+    must pass libpng's MSAD self-check. Returns ((B, H, W*bpp) uint8,
+    (B, H) int8) tensors on ``device``.
     """
-    if not use_row_filters:
-        raise NotImplementedError(
-            "embedding mode (use_row_filters=False) is not ported")
     device = resolve_device(device)
     if isinstance(rows, np.ndarray):
         rows = torch.from_numpy(np.ascontiguousarray(rows))
@@ -52,6 +50,7 @@ def optimize_batch_auto(rows, strength, bleed: int = 2, *, bpp: int, device,
             dtype=torch.int32, device=device)
 
     return optimize_batch(rows, as_int32(strength), int(bleed), bpp=bpp,
+                          use_row_filters=use_row_filters,
                           w_real=as_int32(w_real), h_real=as_int32(h_real))
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch core of the pngloss row optimizer (CLI mode).
+"""Plain PyTorch core of the pngloss row optimizer (CLI and embedding modes).
 
 The counterpart of ``pngloss_tpu/ops/optimize.py``. It holds the exact
 integer semantics of the reference C tool (optimize_state.c,
@@ -246,13 +246,24 @@ def msad_valid(qrow5, qprev, w_real):
     left = shift_right(qrow5, 2)
     mask = column_mask(w_real, qrow5.shape[2])[:, None, :, None]
     sums = []
+    trials = filter_ids(qrow5.device)     # no host copy: CUDA-graph safe
     for t in range(NUM_FILTERS):
-        trial = torch.tensor(t, device=qrow5.device)
-        v = (qrow5 - predict(above, diag, left, trial)) & 0xFF
+        v = (qrow5 - predict(above, diag, left, trials[t])) & 0xFF
         v = torch.where(v < 128, v, 256 - v)
         sums.append((v * mask).sum((-1, -2)))
     chosen = torch.stack(sums, -1).argmin(-1)                # first minimum
     return chosen == filter_ids(qrow5.device).long()
+
+
+# the cost of a candidate that fails the MSAD self-check: UINTMAX_MAX in
+# the C code (optimize_state.c:319-324), above every real cost
+FAIL_COST = torch.iinfo(torch.int64).max
+
+
+def adaptive_cost(cost, passing):
+    """(B, 5) cost with failing candidates at FAIL_COST, so ``first_min``
+    picks the first passing minimum, and filter 0 where none passes."""
+    return torch.where(passing, cost, FAIL_COST)
 
 
 def pick(arr5: torch.Tensor, best: torch.Tensor) -> torch.Tensor:

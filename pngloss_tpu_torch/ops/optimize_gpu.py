@@ -1,4 +1,4 @@
-"""CLI-mode optimizer around the three kernels.
+"""The optimizer around the three kernels, in CLI mode and embedding mode.
 
 Counterpart of ``pngloss_tpu/ops/optimize_pallas.py``. For a batch of
 same-shaped (possibly padded) working-format planes:
@@ -8,8 +8,14 @@ same-shaped (possibly padded) working-format planes:
      libpng's MSAD self-check and the first-minimum winner. Images with no
      passing filter retry at strength s-1; at s <= 0 the min-cost row is
      accepted (where the C tool would abort). The retry loop runs on the
-     host: in CLI mode only row 0 can fail;
-  3. rows 1..H-1 through ``image`` in one launch.
+     host, one sync per attempt;
+  3. rows 1..H-1 through ``image`` in one launch. In CLI mode
+     (``use_row_filters=True``) only row 0 can fail, so this is final. In
+     embedding mode every row runs the MSAD self-check: the image kernel
+     speculates at full strength and flags each image where some row had
+     no passing filter; only those images re-run through the per-row path
+     (``optimize_rows``: every row through step 2's loop, the row kernel
+     with carried state), and their results replace the speculation's.
 
 An image one row high runs step 2 alone. The TPU kernels' packed
 selection key and rank tables are not needed: the selection compares
@@ -21,17 +27,18 @@ from __future__ import annotations
 
 import torch
 
+from pngloss_tpu_torch.convert import Carry
 from pngloss_tpu_torch.ops import hist as hist_op
 from pngloss_tpu_torch.ops import image as image_op
 from pngloss_tpu_torch.ops import row as row_op
 from pngloss_tpu_torch.ops.optimize import (
+    adaptive_cost,
     first_min,
     msad_valid,
     pick,
     row_cost,
 )
 
-_I64_MAX = (1 << 63) - 1
 # share of free device memory one chunk may take
 _MEMORY_SHARE = 0.25
 # the pre-pass kernel's grid holds one image per y index
@@ -40,10 +47,13 @@ _MAX_CHUNK = 65535
 
 def bytes_per_image(h: int, w: int, bpp: int) -> int:
     """Device bytes one image of a CUDA batch holds at once: the uint8
-    plane, the int32 winner rows, and the 5 candidates' rows and dither
-    rows (row attempt outputs and image-kernel scratch)."""
+    plane, the int32 winner rows, the uint8 output, the per-row path's
+    int32 originals and rows (embedding mode's fallback), and the 5
+    candidates' rows and dither rows (row attempt outputs and image-kernel
+    scratch)."""
     wb = w * bpp
-    return h * wb * (1 + 4 + 1) + 4 * 5 * 2 * (wb + 2 * 4 * (w + 5)) + 8192
+    return (h * wb * (1 + 4 + 1 + 4 + 4)
+            + 4 * 5 * 2 * (wb + 2 * 4 * (w + 5)) + 8192)
 
 
 def max_batch(h: int, w: int, bpp: int, device) -> int:
@@ -56,28 +66,36 @@ def max_batch(h: int, w: int, bpp: int, device) -> int:
     return max(1, min(_MAX_CHUNK, fit))
 
 
-def row0(s, bleed: int, orig0, ofreq, w_real):
-    """Row 0 with the MSAD self-check and the strength fallback.
-    Returns the winner's (qrow (B, W, bpp), hist (B, 256), e0n, e1n
-    (B, W+5, 4)) and its filter id (B,) int64."""
-    b, w, bpp = orig0.shape
-    dev = orig0.device
-    zrow = torch.zeros_like(orig0)
-    zerr = torch.zeros((b, w + 5, 4), dtype=torch.int32, device=dev)
-    zhist = torch.zeros((b, 256), dtype=torch.int32, device=dev)
+def zero_carry(b: int, w: int, bpp: int, device) -> Carry:
+    """The state before row 0: zero rows, dither rows and histogram."""
+    zrow = torch.zeros((b, w, bpp), dtype=torch.int32, device=device)
+    zerr = torch.zeros((b, w + 5, 4), dtype=torch.int32, device=device)
+    zhist = torch.zeros((b, 256), dtype=torch.int32, device=device)
+    return Carry(zrow, zrow, zerr, zerr, zhist)
+
+
+def row_step(s, bleed: int, orow, carry: Carry, ofreq, w_real):
+    """One row with the MSAD self-check and the strength fallback, from the
+    state ``carry`` the previous row left. Images with no passing filter
+    retry at strength s-1; at s <= 0 the min-cost row is accepted (where
+    the C tool would abort). One host sync per attempt.
+    Returns the winner's state as the next row's Carry and its filter id
+    (B,) int64."""
+    qprev, oprev, e0, e1, hist = carry
+    b = orow.shape[0]
+    dev = orow.device
     s = s.clone()
     found = torch.zeros(b, dtype=torch.bool, device=dev)
     best = torch.zeros(b, dtype=torch.int64, device=dev)
-    state = (zrow, zhist, zerr, zerr)
+    state = (qprev, hist, e0, e1)
     while True:
-        q5, h5, e0n, e1n = row_op.row_attempt(s, bleed, orig0, zrow, zerr,
-                                              zerr, zhist, ofreq, w_real)
-        cost = row_cost(q5, zhist, h5, zrow, orig0, zrow, w_real)
-        ok = msad_valid(q5, zrow, w_real)
-        found_real = ok.any(1)
+        q5, h5, e0n, e1n = row_op.row_attempt(s, bleed, orow, qprev, e0, e1,
+                                              hist, ofreq, w_real)
+        cost = row_cost(q5, hist, h5, qprev, orow, oprev, w_real)
+        passing = msad_valid(q5, qprev, w_real)
+        found_real = passing.any(1)
         give_up = ~found_real & (s <= 0)
-        ok = ok | give_up[:, None]
-        bf = first_min(torch.where(ok, cost, _I64_MAX))
+        bf = first_min(adaptive_cost(cost, passing | give_up[:, None]))
         upd = ~found & (found_real | give_up)
         best = torch.where(upd, bf, best)
         state = tuple(
@@ -87,34 +105,73 @@ def row0(s, bleed: int, orig0, ofreq, w_real):
         found = found | upd
         s = torch.where(found, s, (s - 1).clamp(min=0))
         if bool(found.all()):
-            return state, best
+            q, h, e0n, e1n = (t.contiguous() for t in state)
+            return Carry(q, orow, e0n, e1n, h), best
 
 
-def _optimize_chunk(rows, strength, bleed: int, bpp: int, w_real, h_real):
+def row0(s, bleed: int, orig0, ofreq, w_real):
+    """Row 0: ``row_step`` from the zero state."""
+    b, w, bpp = orig0.shape
+    return row_step(s, bleed, orig0,
+                    zero_carry(b, w, bpp, orig0.device), ofreq, w_real)
+
+
+def optimize_rows(s, bleed: int, orig, ofreq, w_real, carry=None):
+    """The per-row path of embedding mode (every row adaptive), the
+    counterpart of ``optimize_batch_pallas_t(use_row_filters=False)``.
+
+    orig (B, R, W, bpp) int32 originals of the rows to run; carry: the
+    state the row before them left (None: they start at row 0). Returns
+    the winner rows (B, R, W, bpp) int32 and filter ids (B, R) int64."""
+    b, r, w, bpp = orig.shape
+    if carry is None:
+        carry = zero_carry(b, w, bpp, orig.device)
+    q = torch.empty_like(orig)
+    f = torch.empty((b, r), dtype=torch.int64, device=orig.device)
+    for y in range(r):
+        carry, f[:, y] = row_step(s, bleed, orig[:, y].contiguous(), carry,
+                                  ofreq, w_real)
+        q[:, y] = carry.qprev
+    return q, f
+
+
+def _optimize_chunk(rows, strength, bleed: int, bpp: int, w_real, h_real,
+                    use_row_filters: bool):
     b, h, wb = rows.shape
     w = wb // bpp
     ofreq = hist_op.original_frequencies(rows, bpp, w_real, h_real)
     orig0 = rows[:, 0].reshape(b, w, bpp).to(torch.int32)
-    (q0, hist0, e00, e10), f0 = row0(strength, bleed, orig0, ofreq, w_real)
+    c0, f0 = row0(strength, bleed, orig0, ofreq, w_real)
     q = torch.empty((b, h, w, bpp), dtype=torch.uint8, device=rows.device)
     f = torch.empty((b, h), dtype=torch.int8, device=rows.device)
-    q[:, 0] = q0.to(torch.uint8)
+    q[:, 0] = c0.qprev.to(torch.uint8)
     f[:, 0] = f0.to(torch.int8)
     if h > 1:
-        qrows, filt = image_op.image_rows(strength, bleed, w_real, ofreq,
-                                          rows, q0.contiguous(),
-                                          e00.contiguous(), e10.contiguous(),
-                                          hist0.contiguous())
+        qrows, filt, *ok = image_op.image_rows(
+            strength, bleed, w_real, ofreq, rows, c0.qprev, c0.e0, c0.e1,
+            c0.hist, adaptive=not use_row_filters)
         q[:, 1:] = qrows.to(torch.uint8)
         f[:, 1:] = filt.to(torch.int8)
+        if ok:
+            # embedding mode: the images where some row had no passing
+            # filter at full strength re-run through the per-row path
+            bad = (ok[0] == 0).nonzero().squeeze(1)
+            if bad.numel():
+                orig = rows[bad].view(-1, h, w, bpp).to(torch.int32)
+                qb, fb = optimize_rows(strength[bad], bleed, orig,
+                                       ofreq[bad], w_real[bad])
+                q[bad] = qb.to(torch.uint8)
+                f[bad] = fb.to(torch.int8)
     return q.view(b, h, wb), f
 
 
 def optimize_batch(rows, strength, bleed: int = 2, *, bpp: int,
-                   w_real=None, h_real=None):
+                   use_row_filters: bool = True, w_real=None, h_real=None):
     """rows (B, H, W*bpp) uint8 tensor; strength int or (B,) values;
-    w_real/h_real (B,) real sizes of padded planes. Runs on rows' device.
-    Returns (q (B, H, W*bpp) uint8, filters (B, H) int8) on that device."""
+    use_row_filters: CLI mode (True) or embedding mode (False, every row
+    passes libpng's MSAD self-check); w_real/h_real (B,) real sizes of
+    padded planes. Runs on rows' device. Returns (q (B, H, W*bpp) uint8,
+    filters (B, H) int8) on that device."""
     b, h, wb = rows.shape
     w = wb // bpp
     dev = rows.device
@@ -131,12 +188,13 @@ def optimize_batch(rows, strength, bleed: int = 2, *, bpp: int,
     h_real = per_image(h_real, h)
     chunk = max_batch(h, w, bpp, dev)
     if b <= chunk:
-        return _optimize_chunk(rows, strength, int(bleed), bpp, w_real, h_real)
+        return _optimize_chunk(rows, strength, int(bleed), bpp, w_real,
+                               h_real, use_row_filters)
     qs, fs = [], []
     for lo in range(0, b, chunk):
         sl = slice(lo, lo + chunk)
         q, f = _optimize_chunk(rows[sl], strength[sl], int(bleed), bpp,
-                               w_real[sl], h_real[sl])
+                               w_real[sl], h_real[sl], use_row_filters)
         qs.append(q)
         fs.append(f)
     return torch.cat(qs), torch.cat(fs)

@@ -1,7 +1,9 @@
 """Image-level pipeline: decode -> colorspace reduce -> optimize -> encode.
 
-Counterpart of ``pngloss_tpu/pipeline.py`` for CLI mode (row filters
-recorded). Images are bucketed by padded working shape (H, W, bpp) on the
+Counterpart of ``pngloss_tpu/pipeline.py``: CLI mode (row filters
+recorded) and the embedding API (``optimize_for_average_filter``,
+``optimize_with_stride``: every row passes libpng's MSAD self-check).
+Images are bucketed by padded working shape (H, W, bpp) on the
 pad ladder, each bucket is optimized in one call on ``device`` with the
 real sizes as per-image masks, and host DEFLATE drains finished buckets on
 a thread pool. On a CUDA device each bucket's results are copied into
@@ -128,6 +130,7 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 
 
 def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
+                     use_row_filters: bool = True,
                      device) -> list[_PendingBucket]:
     """Bucket working-format planes and optimize each bucket on ``device``,
     starting its device-to-host copy without waiting for it.
@@ -136,7 +139,8 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
     bucketed by PADDED shape, with the real (H, W) passed to the kernels as
     per-image masks, so mixed sizes batch together while outputs stay
     byte-identical to unpadded runs. strength: scalar or per-image sequence
-    (mixed strengths share one launch)."""
+    (mixed strengths share one launch). use_row_filters=False runs
+    embedding mode."""
     device = resolve_device(device)
     per_image = not np.isscalar(strength)
     buckets: dict[tuple[int, int, int], list[int]] = {}
@@ -158,8 +162,9 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
              else strength)
         with tracing.stage(f"device_dispatch_{h_pad}x{wb_pad // bpp}x{bpp}"):
             qb, fb = optimize_batch_auto(batch, s, bleed, bpp=bpp,
-                                         device=device, w_real=w_real,
-                                         h_real=h_real)
+                                         device=device,
+                                         use_row_filters=use_row_filters,
+                                         w_real=w_real, h_real=h_real)
             qh, fh = _to_host(qb), _to_host(fb)
             done = None
             if device.type == "cuda":
@@ -183,9 +188,11 @@ def collect_bucket(p: _PendingBucket):
     return qs, fs
 
 
-def optimize_rgba_batch(rgbas, strength=19, bleed: int = 2, *, device):
-    """Optimize a list of RGBA images (CLI mode), bucketing by working
-    shape. strength: one int for all images, or a per-image sequence.
+def optimize_rgba_batch(rgbas, strength=19, bleed: int = 2, *,
+                        use_row_filters: bool = True, device):
+    """Optimize a list of RGBA images, bucketing by working shape.
+    strength: one int for all images, or a per-image sequence.
+    use_row_filters=False runs embedding mode.
     Returns (list of quantized RGBA, list of row_filters)."""
     if not np.isscalar(strength):
         strength = list(strength)
@@ -198,12 +205,95 @@ def optimize_rgba_batch(rgbas, strength=19, bleed: int = 2, *, device):
         bpps.append(bpp)
     q_out: list = [None] * len(rgbas)
     f_out: list = [None] * len(rgbas)
-    for p in dispatch_buckets(works, bpps, strength, bleed, device=device):
+    for p in dispatch_buckets(works, bpps, strength, bleed,
+                              use_row_filters=use_row_filters,
+                              device=device):
         qb, fb = collect_bucket(p)
         for j, i in enumerate(p.idxs):
             q_out[i] = restore_colorspace(qb[j], p.bpp, rgbas[i].shape[1])
             f_out[i] = np.ascontiguousarray(fb[j])
     return q_out, f_out
+
+
+def optimize_rgba(rgba: np.ndarray, strength: int = 19, bleed: int = 2,
+                  use_row_filters: bool = True, *,
+                  device) -> tuple[np.ndarray, np.ndarray]:
+    """Optimize one RGBA image on ``device``; the single-image counterpart
+    of the reference's optimize_with_rows (pngloss_image.c:52).
+    Returns (quantized RGBA (H,W,4) uint8, row_filters (H,) int8)."""
+    q, f = optimize_rgba_batch([rgba], strength, bleed,
+                               use_row_filters=use_row_filters,
+                               device=device)
+    return q[0], f[0]
+
+
+def unique_symbol_count(q_rgba: np.ndarray, row_filters: np.ndarray,
+                        bpp: int | None = None) -> int:
+    """Number of distinct residual symbols the optimizer emitted
+    (the reference's verbose 'used N unique symbols', pngloss_image.c:315-325).
+    Recomputed from the quantized image: the emitted byte equals the
+    recomputed residual byte under each row's winning filter.
+
+    bpp: the working format the OPTIMIZER used (from the original image's
+    colorspace detection). Pass it whenever available — re-detecting on the
+    quantized pixels can differ when quantization collapses the image to
+    grayscale or fully-opaque, and the count would diverge from the C tool's
+    histogram-based one."""
+    if bpp is None:
+        work, bpp = reduce_colorspace(q_rgba)
+    else:
+        work = pack_work(q_rgba, bpp)
+    h, wb = work.shape
+    rows = work.astype(np.int32)
+    # no sequential dependency: row y's predictor reads only the known
+    # quantized row y-1, so the five predictor planes vectorize over the
+    # whole image and the winning one is a per-row select
+    up = np.zeros_like(rows)
+    up[1:] = rows[:-1]
+    left = np.zeros_like(rows)
+    left[:, bpp:] = rows[:, :-bpp]
+    diag = np.zeros_like(rows)
+    diag[1:, bpp:] = rows[:-1, :-bpp]
+    p = up - diag
+    pd = left - diag
+    paeth = np.where((np.abs(p) <= np.abs(pd)) & (np.abs(p) <= np.abs(p + pd)),
+                     left, np.where(np.abs(pd) <= np.abs(p + pd), up, diag))
+    preds = np.stack([np.zeros_like(rows), left, up,
+                      (left + up) // 2, paeth])
+    pred = preds[np.asarray(row_filters, np.intp), np.arange(h)]
+    seen = np.zeros(256, bool)
+    seen[(rows - pred) & 0xFF] = True
+    return int(seen.sum())
+
+
+def optimize_for_average_filter(rgba: np.ndarray, strength: int = 19, *,
+                                device) -> np.ndarray:
+    """The embedding API (optimizeForAverageFilter, pngloss_image.c:29):
+    fixed bleed=2, no row-filter output, every row must self-consistently
+    pass libpng's adaptive heuristic. Returns the quantized RGBA array."""
+    q, _ = optimize_rgba(rgba, strength, bleed=2, use_row_filters=False,
+                         device=device)
+    return q
+
+
+def optimize_with_stride(buffer: np.ndarray, width: int, height: int,
+                         stride: int, strength: int = 19, bleed: int = 2,
+                         use_row_filters: bool = True, *, device):
+    """Stride-buffer embedding entry (optimize_with_stride,
+    pngloss_image.c:40-50): ``buffer`` is a flat uint8 array holding RGBA
+    rows ``stride`` bytes apart; pixels are modified IN PLACE, and the
+    per-row filter choices are returned."""
+    buf = buffer.reshape(-1)
+    rgba = np.stack([
+        buf[y * stride: y * stride + width * 4].reshape(width, 4)
+        for y in range(height)
+    ])
+    q, filters = optimize_rgba(rgba, strength, bleed,
+                               use_row_filters=use_row_filters,
+                               device=device)
+    for y in range(height):
+        buf[y * stride: y * stride + width * 4] = q[y].reshape(-1)
+    return filters
 
 
 @dataclasses.dataclass

@@ -87,6 +87,46 @@ def test_row_and_image_kernels_match_plain(cuda, bpp, bleed):
 
 
 @pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_adaptive_image_kernel_matches_plain(cuda, bpp):
+    """The image kernel's adaptive variant (embedding mode's speculation):
+    rows, filters and ok, on inputs where some rows have no passing
+    filter."""
+    rng = np.random.default_rng(440 + bpp)
+    s, w_real = _i32(STRENGTHS, cuda), _i32(W_REAL, cuda)
+    oks = set()
+    for bleed in (1, 2, 32767):
+        st = _row_state(rng, bpp, cuda)
+        img = rng.integers(0, 256, (4, 6, 7 * bpp), dtype=np.uint8)
+        if bpp % 2 == 0:
+            img.reshape(4, 6, 7, bpp)[:, 1::2, ::2, bpp - 1] = 0
+        args = (s, bleed, w_real, st["ofreq"],
+                torch.as_tensor(img, device=cuda), st["qprev"], st["e0"],
+                st["e1"], st["hist"])
+        want = image.image_rows_ref(*args, adaptive=True)
+        _assert_same(image.image_rows(*args, adaptive=True), want)
+        oks.update(want[2].tolist())
+    assert 1 in oks
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_embedding_cuda_matches_cpu(cuda, bpp):
+    rng = np.random.default_rng(450 + bpp)
+    rows = rng.integers(0, 256, (4, 6, 7 * bpp), dtype=np.uint8)
+    if bpp % 2 == 0:
+        rows.reshape(4, 6, 7, bpp)[:, ::2, 1::3, bpp - 1] = 0
+    kw = dict(bpp=bpp, use_row_filters=False, w_real=[7, 4, 7, 1],
+              h_real=[6, 6, 1, 3])
+    before = image.ADAPTIVE_LAUNCHES
+    qg, fg = optimize_batch_auto(rows, [45, 19, 0, 255], 2, device=cuda,
+                                 **kw)
+    assert image.ADAPTIVE_LAUNCHES == before + 1
+    qc, fc = optimize_batch_auto(rows, [45, 19, 0, 255], 2, device="cpu",
+                                 **kw)
+    np.testing.assert_array_equal(qg.cpu().numpy(), qc.numpy())
+    np.testing.assert_array_equal(fg.cpu().numpy(), fc.numpy())
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
 def test_optimizer_cuda_matches_cpu(cuda, bpp):
     rng = np.random.default_rng(400 + bpp)
     rows = rng.integers(0, 256, (3, 9, 11 * bpp), dtype=np.uint8)

@@ -91,10 +91,3 @@ def test_cuda_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         optimize_batch_auto(rows, 19, bpp=1, device="cuda")
 
-
-def test_embedding_mode_not_ported():
-    from pngloss_tpu_torch.ops import optimize_batch_auto
-
-    with pytest.raises(NotImplementedError):
-        optimize_batch_auto(np.zeros((1, 2, 3), np.uint8), 19, bpp=1,
-                            device="cpu", use_row_filters=False)
