@@ -27,7 +27,28 @@ Phases, each of which raises on failure:
      and some need the fallback (launch counters must rise); the adaptive
      image kernel against its plain version over all 511 rows, ok
      included; the output equals the per-row kernel path on every image,
-     and every row's filter is libpng's MSAD choice for that row.
+     and every row's filter is libpng's MSAD choice for that row;
+  7. the CLI on phase 5's images: ``cli.run`` in-process and
+     ``python -m pngloss_tpu_torch`` as a subprocess give phase 5's bytes;
+     stdin -> stdout, ``-v``, a not-a-PNG input (exit 25),
+     ``--skip-if-larger -s 0`` (exit 98), and phase 4's small images
+     against the scalar model;
+  8. the suite runner on those files at -s 19 and -s 40 (32 jobs), each
+     output equal to ``compress_many`` at its strength;
+  9. the website over HTTP (a POST, a GET, a cached GET that launches
+     nothing, two POSTs at once from two threads) and one FastCGI round
+     trip on a unix socket, bytes equal to ``compress_many``'s;
+ 10. data parallelism: ``data_mesh()`` over every device and a mesh of
+     cuda:0 twice, CLI mode and embedding mode equal to unsharded runs;
+     with 2 or more devices, the kernels on cuda:1 while cuda:0 is the
+     current device;
+ 11. a device trace (``tracing.device_trace``) of one main-path run: the
+     trace holds the three kernels, as many launches of each as the
+     counters saw, and their summed device time.
+
+Each of phases 5-11 sets the launch counters to 0 just before the path it
+drives and reads them just after; a kernel of that path that was not
+launched fails the run.
 
 Prints the card line and one JSON line of per-kernel results before the
 last line, ``{"ok": true, "device": {...}}``. Without CUDA, or when any
@@ -37,8 +58,11 @@ phase fails, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -57,6 +81,9 @@ KERNELS = (
      "pngloss_tpu/ops/pallas_image.py:107 (adaptive=True)"),
 )
 EMBED_SEED, EMBED_SMALL_SEED, EMBED_SMALL_STRENGTH = SEED + 5, 700, 45
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_KERNELS = ("hist", "row", "image")
+EMBED_KERNELS = ("hist", "row", "image_adaptive")
 
 
 def card_line() -> str:
@@ -237,8 +264,9 @@ def time_kernels(device, log) -> dict[str, dict]:
     return out
 
 
-def check_end_to_end(device) -> None:
-    """Phase 4: PNG bytes against the scalar model + host encoder."""
+def check_end_to_end(device) -> list[tuple[bytes, int, bytes]]:
+    """Phase 4: PNG bytes against the scalar model + host encoder.
+    Returns (input PNG, strength, expected output) per small image."""
     from pngloss_tpu.codec import decode, encode
     from pngloss_tpu.core.reference import optimize_rgba
     from pngloss_tpu_torch.pipeline import compress_many
@@ -257,6 +285,7 @@ def check_end_to_end(device) -> None:
         pngs.append(encode(rgba, row_filters=None))
         strengths.append(s)
     got = compress_many(pngs, strengths, device=device)
+    cases = []
     for i, (png, s) in enumerate(zip(pngs, strengths)):
         img = decode(png)
         q, f = optimize_rgba(img.rgba, s, 2)
@@ -265,6 +294,8 @@ def check_end_to_end(device) -> None:
         if got[i].unwrap() != want:
             raise AssertionError(f"end-to-end bytes differ for image {i} "
                                  f"({specs[i]})")
+        cases.append((png, s, want))
+    return cases
 
 
 def speculate(rows, bpp: int, strength: int, device):
@@ -346,9 +377,10 @@ def embedding_batch(rng) -> np.ndarray:
                            noise.astype(np.uint8)])
 
 
-def run_embedding(device, card: str, log) -> tuple[dict, dict]:
+def run_embedding(device, card: str, log):
     """Phase 6: embedding mode at full size. Returns the kernel launch
-    counts of its first run and the adaptive image kernel's timing."""
+    counts of its first run, the adaptive image kernel's timing, and the
+    inputs and outputs of that run (rgba, q, f)."""
     import torch
 
     from pngloss_tpu.core.reference import adaptive_filter_for_row
@@ -443,12 +475,12 @@ def run_embedding(device, card: str, log) -> tuple[dict, dict]:
         lambda: image.image_rows_ref(*args, adaptive=True),
         f"{b}x{SIDE}x{SIDE}x{bpp} (rows 1-{SIDE - 1}, embedding batch)", 2,
         log)
-    return launches, timing
+    return launches, timing, (rgba, q1, f1)
 
 
-def run_main_path(device, card: str, log) -> dict[str, int]:
+def run_main_path(device, card: str, log):
     """Phase 5: the main path at full size. Returns the kernel launch
-    counts of its first run."""
+    counts of its first run, its input PNGs and its output bytes."""
     from pngloss_tpu import tracing
     from pngloss_tpu.codec import decode, encode
     from pngloss_tpu_torch.ops import hist, image, row
@@ -492,7 +524,424 @@ def run_main_path(device, card: str, log) -> dict[str, int]:
     log("  stages (run 1, seconds summed over threads): " + json.dumps(
         {k: v["seconds"] for k, v in stages.items()}))
     log(f"  launches: {launches}")
-    return launches
+    return launches, pngs, [r.unwrap() for r in first]
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch counter to 0."""
+    from pngloss_tpu_torch.ops import hist, image, row
+
+    hist.LAUNCHES = row.LAUNCHES = image.LAUNCHES = 0
+    image.ADAPTIVE_LAUNCHES = 0
+
+
+def read_counts(path: str, need) -> dict[str, int]:
+    """The launch counters; raises unless every kernel in ``need`` rose."""
+    from pngloss_tpu_torch.ops import hist, image, row
+
+    counts = {"hist": hist.LAUNCHES, "row": row.LAUNCHES,
+              "image": image.LAUNCHES,
+              "image_adaptive": image.ADAPTIVE_LAUNCHES}
+    missing = [k for k in need if not counts[k]]
+    if missing:
+        raise AssertionError(f"{path}: {missing} not launched: {counts}")
+    return counts
+
+
+def write_pngs(d: str, pngs) -> list[str]:
+    paths = []
+    for k, png in enumerate(pngs):
+        paths.append(os.path.join(d, f"img{k:02d}.png"))
+        with open(paths[-1], "wb") as fh:
+            fh.write(png)
+    return paths
+
+
+def check_files(paths, want, what: str) -> None:
+    for k, (path, data) in enumerate(zip(paths, want)):
+        with open(path, "rb") as fh:
+            if fh.read() != data:
+                raise AssertionError(f"{what}: {os.path.basename(path)} "
+                                     f"differs from compress_many's bytes")
+
+
+def run_cli(device, pngs, want, small, log) -> dict[str, int]:
+    """Phase 7: the CLI. Returns the launch counts of the in-process run
+    over phase 5's 16 files."""
+    import contextlib
+    import io
+
+    import torch
+
+    from pngloss_tpu_torch import cli
+
+    def quiet_run(argv, **kw):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.run(argv, device=device, **kw)
+        return rc, err.getvalue().splitlines()
+
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_pngs(d, pngs)
+        outs = [p[:-4] + "-loss.png" for p in paths]
+        argv = ["-f", "-s", str(STRENGTH), *paths]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.run(argv, device=device)
+        wall = time.perf_counter() - t0
+        counts = read_counts("[7] cli.run", CLI_KERNELS)
+        if rc != 0:
+            raise AssertionError(f"cli.run exited {rc}")
+        check_files(outs, want, "cli.run")
+        for o in outs:
+            os.unlink(o)
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pngloss_tpu_torch", *argv], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+            text=True, timeout=600)
+        sub_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m pngloss_tpu_torch exited "
+                                 f"{proc.returncode}:\n{proc.stderr}")
+        check_files(outs, want, "python -m pngloss_tpu_torch")
+
+        out = io.BytesIO()
+        rc = cli.run(["-f", "-s", str(STRENGTH), "-"],
+                     stdin=io.BytesIO(pngs[0]), stdout=out, device=device)
+        if rc != 0 or out.getvalue() != want[0]:
+            raise AssertionError(f"stdin -> stdout: exit {rc}, bytes "
+                                 f"{'equal' if out.getvalue() == want[0] else 'differ'}")
+
+        rc, err = quiet_run(["-fv", "-s", str(STRENGTH), *paths[:2]])
+        bucket = f"  optimizing bucket 1/1: 2 image(s) at {SIDE}x{SIDE}x3bpp"
+        if rc != 0 or bucket not in err or err[-1] != "Compressed 2 images.":
+            raise AssertionError(f"-v: exit {rc}, stderr {err}")
+
+        bad = os.path.join(d, "bad.png")
+        with open(bad, "wb") as fh:
+            fh.write(b"not a png")
+        rc, err = quiet_run(["-f", bad])
+        if rc != 25 or "  error: cannot decode image bad.png" not in err:
+            raise AssertionError(f"not a PNG: exit {rc}, stderr {err}")
+
+        # a small RGBA image whose -s 0 output is larger than its input
+        os.mkdir(os.path.join(d, "small"))
+        (src,) = write_pngs(os.path.join(d, "small"), [small[2][0]])
+        never = os.path.join(d, "never.png")
+        rc, err = quiet_run(["-s", "0", "--skip-if-larger", "-o", never, src])
+        if rc != 98 or os.path.exists(never):
+            raise AssertionError(f"--skip-if-larger -s 0: exit {rc}")
+
+        for k, (png, s, expect) in enumerate(small):
+            out = io.BytesIO()
+            rc = cli.run(["-f", "-s", str(s), "-"], stdin=io.BytesIO(png),
+                         stdout=out, device=device)
+            if rc != 0 or out.getvalue() != expect:
+                raise AssertionError(f"small image {k}: CLI exit {rc} or "
+                                     "bytes differ from the scalar model")
+    mp = len(pngs) * SIDE * SIDE / 1e6
+    log(f"  cli.run -f -s {STRENGTH} on {len(pngs)} files: {wall:.3f} s "
+        f"({mp / wall:.3f} MP/s), launches {counts}")
+    log(f"  python -m pngloss_tpu_torch on the same files: {sub_wall:.3f} s "
+        "wall, start-up and kernel load included")
+    log("  stdin -> stdout, -v, not-a-PNG (25), --skip-if-larger -s 0 (98), "
+        f"{len(small)} small images == scalar model: ok")
+    return counts
+
+
+def run_suite_phase(device, pngs, want, log) -> dict[str, int]:
+    """Phase 8: the suite runner over phase 5's files at two strengths."""
+    import torch
+
+    from pngloss_tpu_torch.pipeline import compress_many
+    from pngloss_tpu_torch.suite import run_suite
+
+    strengths = (STRENGTH, 40)
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_pngs(d, pngs)
+        out_dir = os.path.join(d, "out")
+        torch.cuda.synchronize()
+        reset_counts()
+        rows, summary = run_suite(paths, strengths, out_dir=out_dir,
+                                  device=device, verbose=False)
+        counts = read_counts("[8] run_suite", CLI_KERNELS)
+        errors = [r for r in rows if "error" in r]
+        if len(rows) != len(pngs) * len(strengths) or errors:
+            raise AssertionError(f"suite: {len(rows)} rows, errors {errors}")
+        want40 = [r.unwrap() for r in compress_many(pngs, 40, device=device)]
+        for s, expect in ((STRENGTH, want), (40, want40)):
+            check_files([os.path.join(out_dir, f"img{k:02d}-s{s}.png")
+                         for k in range(len(pngs))], expect, f"suite -s {s}")
+    log(f"  {len(rows)} jobs, summary {json.dumps(summary)}, "
+        f"launches {counts}")
+    return counts
+
+
+def _post(url: str, fields: dict):
+    import urllib.request
+
+    b = "XsmokeX"
+    body = b"".join(
+        f"--{b}\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n"
+        .encode() + v + b"\r\n" for k, v in fields.items())
+    body += f"--{b}--\r\n".encode()
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": f"multipart/form-data; boundary={b}"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, r.read()
+
+
+def _result_url(png: bytes, strength: int = STRENGTH) -> str:
+    import base64
+    import hashlib
+
+    s = base64.urlsafe_b64encode(hashlib.sha224(png).digest()).decode()
+    return f"compressed.cgi?sum224={s}&strength={strength}&bleed=2&strip=0"
+
+
+def _fcgi(path: str, params: dict, body: bytes = b""):
+    """One FastCGI responder request over a unix socket; returns (status
+    line, payload)."""
+    import socket
+    import struct
+
+    from pngloss_tpu.fcgi import (
+        FCGI_BEGIN_REQUEST,
+        FCGI_PARAMS,
+        FCGI_STDIN,
+        FCGI_STDOUT,
+        _pack_pairs,
+        _pack_record,
+    )
+
+    with socket.socket(socket.AF_UNIX) as s:
+        s.settimeout(600)
+        s.connect(path)
+        s.sendall(_pack_record(FCGI_BEGIN_REQUEST, 1,
+                               struct.pack(">HB5x", 1, 0))
+                  + _pack_record(FCGI_PARAMS, 1, _pack_pairs(params))
+                  + _pack_record(FCGI_PARAMS, 1, b""))
+        for i in range(0, len(body), 32768):
+            s.sendall(_pack_record(FCGI_STDIN, 1, body[i:i + 32768]))
+        s.sendall(_pack_record(FCGI_STDIN, 1, b""))
+        buf = b""
+        while chunk := s.recv(1 << 16):
+            buf += chunk
+    out = b""
+    while buf:
+        _v, rtype, _rid, clen, plen = struct.unpack(">BBHHBx", buf[:8])
+        if rtype == FCGI_STDOUT:
+            out += buf[8:8 + clen]
+        buf = buf[8 + clen + plen:]
+    head, _, payload = out.partition(b"\r\n\r\n")
+    return head.split(b"\r\n")[0].decode(), payload
+
+
+def serve(srv) -> threading.Thread:
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    return t
+
+
+def stop(srv, t: threading.Thread) -> None:
+    srv.shutdown()
+    t.join(timeout=60)
+    if t.is_alive():
+        raise AssertionError("server thread did not stop")
+
+
+def run_website(device, pngs, want, log) -> dict[str, int]:
+    """Phase 9: the website over HTTP, then one FastCGI round trip."""
+    import urllib.request
+
+    import torch
+
+    from pngloss_tpu_torch import website
+
+    fields = {"strength": str(STRENGTH).encode(), "bleed": b"2",
+              "strip": b"0"}
+    with tempfile.TemporaryDirectory() as d:
+        srv = website.make_server(port=0, store=os.path.join(d, "store"),
+                                  device=device)
+        t = serve(srv)
+        try:
+            url = f"http://127.0.0.1:{srv.server_address[1]}/"
+
+            def get(png):
+                with urllib.request.urlopen(url + _result_url(png),
+                                            timeout=600) as r:
+                    return r.read()
+
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            status, page = _post(url + "compress.cgi",
+                                 {"file": pngs[0], **fields})
+            post_s = time.perf_counter() - t0
+            counts = read_counts("[9] POST compress.cgi", CLI_KERNELS)
+            t0 = time.perf_counter()
+            data = get(pngs[0])
+            get_s = time.perf_counter() - t0
+            if status != 200 or b"compressed" not in page or data != want[0]:
+                raise AssertionError(f"POST {status} / GET bytes differ")
+            reset_counts()
+            if get(pngs[0]) != want[0] or any(read_counts("cached GET", ())
+                                              .values()):
+                raise AssertionError("the cached GET launched a kernel or "
+                                     "gave other bytes")
+
+            got: dict = {}
+
+            def post_and_get(k):
+                _post(url + "compress.cgi", {"file": pngs[k], **fields})
+                got[k] = get(pngs[k])
+
+            reset_counts()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=post_and_get, args=(k,))
+                       for k in (1, 2)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            both_s = time.perf_counter() - t0
+            both = read_counts("[9] two POSTs at once", CLI_KERNELS)
+            if got != {k: want[k] for k in (1, 2)}:
+                raise AssertionError("concurrent POSTs gave other bytes")
+        finally:
+            stop(srv, t)
+            srv.server_close()
+
+        sock = os.path.join(d, "fcgi.sock")
+        srv = website.make_server(store=os.path.join(d, "store"),
+                                  unix_socket=sock, fcgi=True, device=device)
+        t = serve(srv)
+        try:
+            b = "XsmokeX"
+            body = b"".join(
+                f"--{b}\r\nContent-Disposition: form-data; name=\"{k}\""
+                "\r\n\r\n".encode() + v + b"\r\n"
+                for k, v in {"file": pngs[3], **fields}.items())
+            body += f"--{b}--\r\n".encode()
+            status, page = _fcgi(sock, {
+                "REQUEST_METHOD": "POST", "REQUEST_URI": "/compress.cgi",
+                "CONTENT_TYPE": f"multipart/form-data; boundary={b}",
+                "CONTENT_LENGTH": str(len(body))}, body)
+            status2, data = _fcgi(sock, {"REQUEST_METHOD": "GET",
+                                         "REQUEST_URI": "/" + _result_url(
+                                             pngs[3])})
+            if not (status.startswith("Status: 200")
+                    and status2.startswith("Status: 200")
+                    and data == want[3]):
+                raise AssertionError(f"FastCGI: {status} / {status2}, bytes "
+                                     f"{'equal' if data == want[3] else 'differ'}")
+        finally:
+            stop(srv, t)
+    log(f"  HTTP: POST of one {SIDE}x{SIDE} RGB image {post_s:.3f} s "
+        f"(compression included), GET {get_s:.3f} s (cache hit), "
+        f"launches {counts}")
+    log(f"  two POSTs + GETs from two threads at once: {both_s:.3f} s, "
+        f"bytes equal, launches {both}; cached GET launched nothing; "
+        "FastCGI round trip on a unix socket: bytes equal")
+    return counts
+
+
+def run_mesh(device, pngs, want, embed, log) -> dict[str, int]:
+    """Phase 10: data parallelism against the unsharded runs."""
+    import torch
+
+    from pngloss_tpu_torch.parallel import data_mesh
+    from pngloss_tpu_torch.pipeline import compress_many, optimize_rgba_batch
+
+    rgba, q1, f1 = embed
+    n = torch.cuda.device_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compress_many(pngs, STRENGTH, device=device)
+    plain_s = time.perf_counter() - t0
+    log(f"  {n} device(s); unsharded compress_many {plain_s:.3f} s")
+    counts = {}
+    for name, mesh in (("data_mesh()", data_mesh()),
+                       ("(cuda:0, cuda:0)", data_mesh((device, device)))):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = compress_many(pngs, STRENGTH, mesh=mesh)
+        cli_s = time.perf_counter() - t0
+        counts = read_counts(f"[10] compress_many(mesh={name})", CLI_KERNELS)
+        if [r.unwrap() for r in got] != want:
+            raise AssertionError(f"mesh {name}: bytes differ from unsharded")
+        reset_counts()
+        t0 = time.perf_counter()
+        q, f = optimize_rgba_batch(list(rgba), STRENGTH,
+                                   use_row_filters=False, mesh=mesh)
+        emb_s = time.perf_counter() - t0
+        emb = read_counts(f"[10] embedding mode, mesh={name}", EMBED_KERNELS)
+        for i in range(len(rgba)):
+            if not (np.array_equal(q[i], q1[i])
+                    and np.array_equal(f[i], f1[i])):
+                raise AssertionError(f"mesh {name}: embedding image {i} "
+                                     "differs from unsharded")
+        log(f"  mesh {name} = {[str(d) for d in mesh]}: compress_many "
+            f"{cli_s:.3f} s, embedding {emb_s:.3f} s, equal to unsharded; "
+            f"launches {counts} / {emb}")
+    if n >= 2:
+        with torch.cuda.device(0):
+            errs = check_kernels(torch.device("cuda", 1))
+        log(f"  kernels on cuda:1 while cuda:0 is current == plain "
+            f"versions: {errs}")
+    else:
+        log("  one device: the cross-device check needs 2, not run")
+    return counts
+
+
+def run_tracing(device, pngs, want, log) -> dict[str, int]:
+    """Phase 11: a device trace of one main-path run."""
+    import re
+
+    import torch
+
+    from pngloss_tpu_torch import tracing
+    from pngloss_tpu_torch.pipeline import compress_many
+
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        reset_counts()
+        with tracing.device_trace(d):
+            got = compress_many(pngs, STRENGTH, device=device)
+            torch.cuda.synchronize()
+        counts = read_counts("[11] traced compress_many", CLI_KERNELS)
+        if [r.unwrap() for r in got] != want:
+            raise AssertionError("traced run: bytes differ")
+        (name,) = os.listdir(d)
+        with open(os.path.join(d, name)) as fh:
+            events = json.load(fh)["traceEvents"]
+    # "hist_kernel(...)", "void (anonymous namespace)::image_kernel<3,
+    # false>(...)": the kernels of csrc/ by their function names
+    pattern = re.compile(r"(?:^|[ :])(hist|row|image)_kernel[<(]")
+    us = dict.fromkeys(CLI_KERNELS, 0.0)
+    seen = dict.fromkeys(CLI_KERNELS, 0)
+    busy = 0.0
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        busy += e["dur"]
+        m = pattern.search(e.get("name", ""))
+        if m:
+            us[m.group(1)] += e["dur"]
+            seen[m.group(1)] += 1
+    if seen != {k: counts[k] for k in CLI_KERNELS}:
+        names = sorted({e.get("name", "")[:80] for e in events
+                        if e.get("cat") == "kernel"})
+        raise AssertionError(f"trace holds {seen} kernel launches, the "
+                             f"counters saw {counts}; kernels: {names}")
+    log("  trace kernels (launches, summed device ms): " + ", ".join(
+        f"{k} {seen[k]} x {us[k] / 1e3:.3f}" for k in CLI_KERNELS)
+        + f"; all kernels {busy / 1e3:.3f} ms")
+    return counts
 
 
 def main() -> int:
@@ -527,7 +976,7 @@ def main() -> int:
     timing = time_kernels(device, log)
 
     t0 = time.perf_counter()
-    check_end_to_end(device)
+    small = check_end_to_end(device)
     log(f"[4] end-to-end bytes == scalar reference model "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -537,12 +986,23 @@ def main() -> int:
         f"speculation ok {ok} ({time.perf_counter() - t0:.1f} s)")
 
     log("[5] main path")
-    launches = run_main_path(device, card, log)
+    launches, pngs, want = run_main_path(device, card, log)
 
     log("[6] embedding mode at full size")
-    embed_launches, timing["image_adaptive"] = run_embedding(device, card,
-                                                             log)
+    embed_launches, timing["image_adaptive"], embed = run_embedding(
+        device, card, log)
     launches["image_adaptive"] = embed_launches["image_adaptive"]
+
+    for label, phase in (
+            ("[7] CLI", lambda: run_cli(device, pngs, want, small, log)),
+            ("[8] suite", lambda: run_suite_phase(device, pngs, want, log)),
+            ("[9] website", lambda: run_website(device, pngs, want, log)),
+            ("[10] mesh", lambda: run_mesh(device, pngs, want, embed, log)),
+            ("[11] tracing", lambda: run_tracing(device, pngs, want, log))):
+        log(label)
+        t0 = time.perf_counter()
+        phase()
+        log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name],

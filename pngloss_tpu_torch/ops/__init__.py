@@ -15,12 +15,18 @@ import torch
 from pngloss_tpu_torch.ops.optimize_gpu import optimize_batch
 
 
+class CudaUnavailableError(RuntimeError):
+    """A CUDA device was asked for on a machine where CUDA is not
+    available. Nothing falls back to the CPU."""
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; a CUDA device with no CUDA available
-    raises instead of running anywhere else."""
+    raises ``CudaUnavailableError`` instead of running anywhere else."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but CUDA is not available")
+        raise CudaUnavailableError(
+            "device 'cuda' requested but CUDA is not available")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
     return device
@@ -54,4 +60,5 @@ def optimize_batch_auto(rows, strength, bleed: int = 2, *, bpp: int, device,
                           w_real=as_int32(w_real), h_real=as_int32(h_real))
 
 
-__all__ = ["optimize_batch", "optimize_batch_auto", "resolve_device"]
+__all__ = ["CudaUnavailableError", "optimize_batch", "optimize_batch_auto",
+           "resolve_device"]

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
 The kernels are compiled once, at first use, with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, and loaded
-with ``ctypes``. The library lands in ``build/pngloss_tpu_torch/<key>/``
-at the root of the checkout, where ``key`` hashes the sources and the
-flags, so a changed source rebuilds. Nothing here runs at import time: the
+(``sm_90a``): one ``nvcc`` per source, all started together, then one link
+into a shared library with a plain C interface, loaded with ``ctypes``.
+The library lands in ``build/pngloss_tpu_torch/<key>/`` at the root of
+the checkout, where ``key`` hashes the sources and the flags, so a
+changed source rebuilds. Nothing here runs at import time: the
 package imports on machines with no CUDA toolkit.
 
 Every C entry point takes its pointers and the CUDA stream as
@@ -30,8 +31,10 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build",
                           "pngloss_tpu_torch")
 SOURCES = ("hist.cu", "row.cu", "image.cu")
 HEADERS = ("quantize.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+LINK_FLAGS = (*_ARCH, "-shared")
 LIB_NAME = "libpngloss_tpu_torch.so"
 
 _P = ctypes.c_void_p
@@ -66,24 +69,43 @@ def build_key() -> str:
     for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read() + b"\0")
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
 def _compile(out_path: str) -> str:
-    """Run nvcc; returns its output (register and spill report)."""
+    """Compile every source in parallel, then link; returns nvcc's output
+    (the register and spill report)."""
+    nvcc = nvcc_path()
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out_path))
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out_path)
-    return proc.stdout + proc.stderr
+    work = tempfile.mkdtemp(dir=os.path.dirname(out_path))
+    procs: list = []
+    try:
+        objs = [os.path.join(work, s + ".o") for s in SOURCES]
+        for s, obj in zip(SOURCES, objs):
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                 os.path.join(CSRC_DIR, s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+        for s, p, log in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):"
+                                   f"\n{log}")
+        lib = os.path.join(work, LIB_NAME)
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", lib, *objs],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(lib, out_path)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return "".join(logs) + proc.stdout + proc.stderr
 
 
 def library() -> ctypes.CDLL:
@@ -116,7 +138,9 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    """The raw handle of torch's current CUDA stream on ``t``'s device."""
+    """The raw handle of torch's current CUDA stream on ``t``'s device.
+    Launch under ``torch.cuda.device(t.device)``: a stream is valid only
+    while its own device is the current one."""
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -62,8 +62,9 @@ def original_frequencies(rows, bpp: int, w_real=None, h_real=None):
     out = torch.zeros((b, NUM_FILTERS, 256), dtype=torch.int32,
                       device=rows.device)
     lib = _build.library()
-    _build.check(lib.plk_hist(
-        rows.data_ptr(), wr.data_ptr(), hr.data_ptr(), out.data_ptr(),
-        b, h, wb // bpp, bpp, _build.stream_ptr(rows)), "plk_hist")
+    with torch.cuda.device(rows.device):
+        _build.check(lib.plk_hist(
+            rows.data_ptr(), wr.data_ptr(), hr.data_ptr(), out.data_ptr(),
+            b, h, wb // bpp, bpp, _build.stream_ptr(rows)), "plk_hist")
     LAUNCHES += 1
     return out

@@ -88,17 +88,19 @@ def _replayable(fn, device):
     tensors, refilled. ``fn`` must not write its inputs."""
     if device.type != "cuda":
         return fn
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        fn()                    # warm-up: lazy initialisation off the graph
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fn()
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn()                # warm-up: lazy initialisation off the graph
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
 
     def replay():
-        graph.replay()
+        with torch.cuda.device(device):
+            graph.replay()
         return out
     return replay
 
@@ -142,13 +144,15 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
     e1w = torch.empty_like(e0w)
     ok = torch.empty(b, dtype=i32, device=dev) if adaptive else None
     lib = _build.library()
-    _build.check(lib.plk_image_rows(
-        s.data_ptr(), bleed, w_real.data_ptr(), ofreq.data_ptr(),
-        rows.data_ptr(), qprev0.data_ptr(), e00.data_ptr(), e10.data_ptr(),
-        hist0.data_ptr(), qrows.data_ptr(), filt.data_ptr(),
-        None if ok is None else ok.data_ptr(), cand.data_ptr(),
-        e0n5.data_ptr(), e1n5.data_ptr(), e0w.data_ptr(), e1w.data_ptr(),
-        b, h, w, bpp, _build.stream_ptr(rows)), "plk_image_rows")
+    with torch.cuda.device(dev):
+        _build.check(lib.plk_image_rows(
+            s.data_ptr(), bleed, w_real.data_ptr(), ofreq.data_ptr(),
+            rows.data_ptr(), qprev0.data_ptr(), e00.data_ptr(),
+            e10.data_ptr(), hist0.data_ptr(), qrows.data_ptr(),
+            filt.data_ptr(), None if ok is None else ok.data_ptr(),
+            cand.data_ptr(), e0n5.data_ptr(), e1n5.data_ptr(),
+            e0w.data_ptr(), e1w.data_ptr(), b, h, w, bpp,
+            _build.stream_ptr(rows)), "plk_image_rows")
     if adaptive:
         ADAPTIVE_LAUNCHES += 1
         return qrows, filt, ok

@@ -45,11 +45,12 @@ def row_attempt(s, bleed: int, orig, qprev, e0, e1, hist, ofreq, w_real):
     e0n = torch.empty((b, NUM_FILTERS, w + 5, 4), dtype=i32, device=dev)
     e1n = torch.empty_like(e0n)
     lib = _build.library()
-    _build.check(lib.plk_row_attempt(
-        s.data_ptr(), bleed, w_real.data_ptr(), orig.data_ptr(),
-        qprev.data_ptr(), e0.data_ptr(), e1.data_ptr(), hist.data_ptr(),
-        ofreq.data_ptr(), qrow.data_ptr(), hist5.data_ptr(), e0n.data_ptr(),
-        e1n.data_ptr(), b, w, bpp, _build.stream_ptr(orig)),
-        "plk_row_attempt")
+    with torch.cuda.device(dev):
+        _build.check(lib.plk_row_attempt(
+            s.data_ptr(), bleed, w_real.data_ptr(), orig.data_ptr(),
+            qprev.data_ptr(), e0.data_ptr(), e1.data_ptr(), hist.data_ptr(),
+            ofreq.data_ptr(), qrow.data_ptr(), hist5.data_ptr(),
+            e0n.data_ptr(), e1n.data_ptr(), b, w, bpp,
+            _build.stream_ptr(orig)), "plk_row_attempt")
     LAUNCHES += 1
     return qrow, hist5, e0n, e1n

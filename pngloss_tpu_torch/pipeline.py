@@ -4,11 +4,13 @@ Counterpart of ``pngloss_tpu/pipeline.py``: CLI mode (row filters
 recorded) and the embedding API (``optimize_for_average_filter``,
 ``optimize_with_stride``: every row passes libpng's MSAD self-check).
 Images are bucketed by padded working shape (H, W, bpp) on the
-pad ladder, each bucket is optimized in one call on ``device`` with the
-real sizes as per-image masks, and host DEFLATE drains finished buckets on
-a thread pool. On a CUDA device each bucket's results are copied into
-pinned host memory without blocking, so later buckets are dispatched while
-earlier copies land. Output bytes equal ``pngloss_tpu.pipeline``'s.
+pad ladder, each bucket is optimized in one call on ``device``, or split
+over the devices of ``mesh`` (``parallel.data_mesh``), with the real sizes
+as per-image masks, and host DEFLATE drains finished buckets on a thread
+pool. On CUDA each shard's results are copied into pinned host memory
+without blocking, so later buckets are dispatched while earlier copies
+land. Each shard chunks itself by its own device's free memory. Output
+bytes equal ``pngloss_tpu.pipeline``'s.
 
 The host helpers below are copies of ``pngloss_tpu.pipeline``'s: that
 module imports JAX at its top, so the port cannot import them from there.
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from pngloss_tpu import codec, tracing
-from pngloss_tpu_torch.ops import optimize_batch_auto, resolve_device
+from pngloss_tpu_torch.parallel import optimize_batch_sharded, resolve_mesh
 
 
 def working_bpp(rgba: np.ndarray) -> int:
@@ -118,22 +120,42 @@ class _PendingBucket:
     q: torch.Tensor              # host (B, H_pad, W_pad*bpp) uint8
     f: torch.Tensor              # host (B, H_pad) int8
     dims: list[tuple[int, int]]  # per-image real (H, W*bpp) to slice out
-    done: object = None          # CUDA event recorded after the copies
+    # CUDA events, one per CUDA shard, recorded after its copies
+    done: list = dataclasses.field(default_factory=list)
 
 
-def _to_host(t: torch.Tensor) -> torch.Tensor:
-    if t.device.type != "cuda":
-        return t
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    return host
+def _gather_to_host(qs, fs):
+    """The shards' results as one host tensor each, in batch order. CUDA
+    shards copy into pinned memory without blocking; returns (q, f,
+    events), one event per CUDA shard, recorded on the stream of the
+    shard's device, which did its copy."""
+    if all(q.device.type != "cuda" for q in qs):
+        return torch.cat(qs), torch.cat(fs), []
+    b = sum(len(q) for q in qs)
+    qh = torch.empty((b, *qs[0].shape[1:]), dtype=qs[0].dtype,
+                     pin_memory=True)
+    fh = torch.empty((b, *fs[0].shape[1:]), dtype=fs[0].dtype,
+                     pin_memory=True)
+    done, lo = [], 0
+    for q, f in zip(qs, fs):
+        hi = lo + len(q)
+        qh[lo:hi].copy_(q, non_blocking=True)
+        fh[lo:hi].copy_(f, non_blocking=True)
+        if q.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(q.device))
+            done.append(event)
+        lo = hi
+    return qh, fh, done
 
 
 def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
-                     use_row_filters: bool = True,
-                     device) -> list[_PendingBucket]:
+                     use_row_filters: bool = True, device=None,
+                     mesh=None) -> list[_PendingBucket]:
     """Bucket working-format planes and optimize each bucket on ``device``,
-    starting its device-to-host copy without waiting for it.
+    or split over the devices of ``mesh`` (which, when given, replaces
+    ``device``), starting its device-to-host copies without waiting for
+    them.
 
     Ragged batching: each plane is zero-padded up to the pad_dim ladder and
     bucketed by PADDED shape, with the real (H, W) passed to the kernels as
@@ -141,7 +163,7 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
     byte-identical to unpadded runs. strength: scalar or per-image sequence
     (mixed strengths share one launch). use_row_filters=False runs
     embedding mode."""
-    device = resolve_device(device)
+    mesh = resolve_mesh(device, mesh)
     per_image = not np.isscalar(strength)
     buckets: dict[tuple[int, int, int], list[int]] = {}
     for i, (wk, bpp) in enumerate(zip(works, bpps)):
@@ -161,25 +183,20 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
         s = (np.asarray([strength[i] for i in idxs], np.int32) if per_image
              else strength)
         with tracing.stage(f"device_dispatch_{h_pad}x{wb_pad // bpp}x{bpp}"):
-            qb, fb = optimize_batch_auto(batch, s, bleed, bpp=bpp,
-                                         device=device,
-                                         use_row_filters=use_row_filters,
-                                         w_real=w_real, h_real=h_real)
-            qh, fh = _to_host(qb), _to_host(fb)
-            done = None
-            if device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record()
+            qs, fs, _ = optimize_batch_sharded(
+                batch, s, bleed, bpp=bpp, use_row_filters=use_row_filters,
+                mesh=mesh, fetch=False, w_real=w_real, h_real=h_real)
+            qh, fh, done = _gather_to_host(qs, fs)
         pending.append(_PendingBucket(idxs, bpp, qh, fh, dims, done))
     return pending
 
 
 def collect_bucket(p: _PendingBucket):
-    """Wait for one bucket's host copies; returns (qs, fs) — per-image
-    lists sliced to each image's real (H, W*bpp)."""
+    """Wait for all of one bucket's host copies; returns (qs, fs) —
+    per-image lists sliced to each image's real (H, W*bpp)."""
     with tracing.stage("device_fetch"):
-        if p.done is not None:
-            p.done.synchronize()
+        for event in p.done:
+            event.synchronize()
         q = p.q.numpy()
         f = p.f.numpy()
     qs = [q[k, :h, :wb] for k, (h, wb) in enumerate(p.dims)]
@@ -189,10 +206,11 @@ def collect_bucket(p: _PendingBucket):
 
 
 def optimize_rgba_batch(rgbas, strength=19, bleed: int = 2, *,
-                        use_row_filters: bool = True, device):
-    """Optimize a list of RGBA images, bucketing by working shape.
-    strength: one int for all images, or a per-image sequence.
-    use_row_filters=False runs embedding mode.
+                        use_row_filters: bool = True, device=None,
+                        mesh=None):
+    """Optimize a list of RGBA images on ``device`` or over ``mesh``,
+    bucketing by working shape. strength: one int for all images, or a
+    per-image sequence. use_row_filters=False runs embedding mode.
     Returns (list of quantized RGBA, list of row_filters)."""
     if not np.isscalar(strength):
         strength = list(strength)
@@ -207,7 +225,7 @@ def optimize_rgba_batch(rgbas, strength=19, bleed: int = 2, *,
     f_out: list = [None] * len(rgbas)
     for p in dispatch_buckets(works, bpps, strength, bleed,
                               use_row_filters=use_row_filters,
-                              device=device):
+                              device=device, mesh=mesh):
         qb, fb = collect_bucket(p)
         for j, i in enumerate(p.idxs):
             q_out[i] = restore_colorspace(qb[j], p.bpp, rgbas[i].shape[1])
@@ -216,14 +234,14 @@ def optimize_rgba_batch(rgbas, strength=19, bleed: int = 2, *,
 
 
 def optimize_rgba(rgba: np.ndarray, strength: int = 19, bleed: int = 2,
-                  use_row_filters: bool = True, *,
-                  device) -> tuple[np.ndarray, np.ndarray]:
-    """Optimize one RGBA image on ``device``; the single-image counterpart
-    of the reference's optimize_with_rows (pngloss_image.c:52).
+                  use_row_filters: bool = True, *, device=None,
+                  mesh=None) -> tuple[np.ndarray, np.ndarray]:
+    """Optimize one RGBA image on ``device`` or ``mesh``; the single-image
+    counterpart of the reference's optimize_with_rows (pngloss_image.c:52).
     Returns (quantized RGBA (H,W,4) uint8, row_filters (H,) int8)."""
     q, f = optimize_rgba_batch([rgba], strength, bleed,
                                use_row_filters=use_row_filters,
-                               device=device)
+                               device=device, mesh=mesh)
     return q[0], f[0]
 
 
@@ -315,21 +333,22 @@ class CompressResult:
 
 def compress_bytes(data: bytes, strength: int = 19, bleed: int = 2, *,
                    strip: bool = False, skip_if_larger: bool = False,
-                   device) -> bytes:
+                   device=None, mesh=None) -> bytes:
     """Compress one PNG file's bytes (pngloss_file_internal, pngloss.c:226).
     Raises codec.TooLargeFile when skip_if_larger is set and the output
     would not be smaller than the input."""
     return compress_many([data], strength, bleed, strip=strip,
                          skip_if_larger=skip_if_larger,
-                         device=device)[0].unwrap()
+                         device=device, mesh=mesh)[0].unwrap()
 
 
 def compress_many(files, strength=19, bleed: int = 2, *,
                   strip: bool = False, skip_if_larger: bool = False,
-                  device) -> list[CompressResult]:
+                  device=None, mesh=None) -> list[CompressResult]:
     """Compress many PNG byte strings on ``device`` ("cpu" runs the plain
     PyTorch versions of the kernels, "cuda" the kernels; "cuda" without
-    CUDA raises).
+    CUDA raises), or split over the devices of ``mesh``
+    (``parallel.data_mesh``), which, when given, replaces ``device``.
 
     decode pool -> colorspace reduce -> optimize each shape bucket
       -> per bucket: wait for its host copy -> encode pool
@@ -338,7 +357,7 @@ def compress_many(files, strength=19, bleed: int = 2, *,
     release the GIL, so the pools scale with real cores.
     strength: one int, or one per file.
     """
-    device = resolve_device(device)
+    mesh = resolve_mesh(device, mesh)
     workers = os.cpu_count() or 1
     results = [CompressResult() for _ in files]
     per_image_strength = not np.isscalar(strength)
@@ -384,7 +403,7 @@ def compress_many(files, strength=19, bleed: int = 2, *,
 
     s_ok = ([strength[i] for i in ok_idx] if per_image_strength
             else strength)
-    pending = dispatch_buckets(works, bpps, s_ok, bleed, device=device)
+    pending = dispatch_buckets(works, bpps, s_ok, bleed, mesh=mesh)
 
     def _encode(j: int, q_work: np.ndarray, f_row: np.ndarray) -> None:
         i = ok_idx[j]

@@ -152,3 +152,119 @@ def test_compress_many_cuda_matches_cpu(cuda):
     got = compress_many(pngs, [19, 0, 40], device=cuda)
     want = compress_many(pngs, [19, 0, 40], device="cpu")
     assert [r.unwrap() for r in got] == [r.unwrap() for r in want]
+
+
+def _pngs(seed, n=3, h=12, w=17):
+    from pngloss_tpu.codec import encode
+
+    rgba = np.random.default_rng(seed).integers(0, 256, (n, h, w, 4),
+                                                dtype=np.uint8)
+    rgba[..., 3] = 255
+    rgba[-1, ::2, ::3, 3] = 0
+    return [encode(im, row_filters=None) for im in rgba]
+
+
+def test_cli_on_the_card(cuda, tmp_path, monkeypatch):
+    import io
+
+    from pngloss_tpu_torch import cli
+
+    pngs = _pngs(460)
+    outs = {}
+    for dev in (cuda, "cpu"):
+        d = tmp_path / str(dev).replace(":", "_")
+        d.mkdir()
+        for k, png in enumerate(pngs):
+            (d / f"i{k}.png").write_bytes(png)
+        monkeypatch.chdir(d)
+        assert cli.run(["-f", "-s", "19", "i0.png", "i1.png", "i2.png"],
+                       device=dev) == 0
+        stdout = io.BytesIO()
+        assert cli.run(["-f", "-s", "40", "-"], stdin=io.BytesIO(pngs[1]),
+                       stdout=stdout, device=dev) == 0
+        outs[str(dev)] = ([(d / f"i{k}-loss.png").read_bytes()
+                           for k in range(3)], stdout.getvalue())
+    assert outs[str(cuda)] == outs["cpu"]
+
+
+def test_mesh_of_one_card_twice(cuda):
+    from pngloss_tpu_torch import pipeline
+    from pngloss_tpu_torch.parallel import data_mesh
+
+    mesh = data_mesh((cuda, cuda))
+    pngs = _pngs(461, n=5)
+    strengths = [19, 0, 40, 3, 255]
+    got = pipeline.compress_many(pngs, strengths, mesh=mesh)
+    want = pipeline.compress_many(pngs, strengths, device=cuda)
+    assert [r.unwrap() for r in got] == [r.unwrap() for r in want]
+    rgbas = list(np.random.default_rng(462).integers(
+        0, 256, (5, 6, 7, 4), dtype=np.uint8))
+    q2, f2 = pipeline.optimize_rgba_batch(rgbas, 45, use_row_filters=False,
+                                          mesh=mesh)
+    q1, f1 = pipeline.optimize_rgba_batch(rgbas, 45, use_row_filters=False,
+                                          device=cuda)
+    for a, b in zip(q2 + f2, q1 + f1):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_device_trace_lists_the_kernels(cuda, tmp_path):
+    import json
+    import os
+
+    from pngloss_tpu_torch import pipeline, tracing
+
+    with tracing.device_trace(str(tmp_path)):
+        pipeline.compress_many(_pngs(463), 19, device=cuda)
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = " ".join(e.get("name", "") for e in events
+                       if e.get("cat") == "kernel")
+    for k in ("hist_kernel", "row_kernel", "image_kernel"):
+        assert k in kernels, k
+
+
+def test_kernels_launch_on_their_tensors_device(cuda):
+    """Tensors on cuda:1 while cuda:0 is the current device: each wrapper
+    launches on its tensor's device, and the pipeline records each copy's
+    event on the stream of the device that did the copy. A machine with one
+    card cannot show this fault."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    from pngloss_tpu_torch import pipeline
+
+    other = torch.device("cuda", 1)
+    rng = np.random.default_rng(464)
+    with torch.cuda.device(0):
+        for bpp in (1, 3, 4):
+            rows = torch.as_tensor(
+                rng.integers(0, 256, (3, 8, 9 * bpp), dtype=np.uint8),
+                device=other)
+            got = hist.original_frequencies(rows, bpp)
+            assert got.device == other
+            _assert_same([got], [hist.original_frequencies_ref(rows.cpu(),
+                                                               bpp)])
+            st = _row_state(rng, bpp, other)
+            s, w_real = _i32(STRENGTHS, other), _i32(W_REAL, other)
+            args = (s, 2, st["orig"], st["qprev"], st["e0"], st["e1"],
+                    st["hist"], st["ofreq"], w_real)
+            _assert_same(row.row_attempt(*args), row.row_attempt_ref(
+                *(a.cpu() if isinstance(a, torch.Tensor) else a
+                  for a in args)))
+            img = torch.as_tensor(
+                rng.integers(0, 256, (4, 6, 7 * bpp), dtype=np.uint8),
+                device=other)
+            args = (s, 2, w_real, st["ofreq"], img, st["qprev"], st["e0"],
+                    st["e1"], st["hist"])
+            cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a
+                        for a in args]
+            for adaptive in (False, True):
+                _assert_same(image.image_rows(*args, adaptive=adaptive),
+                             image.image_rows_ref(*cpu_args,
+                                                  adaptive=adaptive))
+        pngs = _pngs(465, n=4)
+        want = [r.unwrap() for r in pipeline.compress_many(pngs, 19,
+                                                           device="cpu")]
+        for mesh in ((other,), (cuda, other)):
+            got = pipeline.compress_many(pngs, 19, mesh=mesh)
+            assert [r.unwrap() for r in got] == want

@@ -68,7 +68,10 @@ def test_optimize_rgba_batch_matches_reference():
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, pngloss_tpu_torch.pipeline, pngloss_tpu_torch.convert; "
+    code = ("import sys, pngloss_tpu_torch.pipeline, pngloss_tpu_torch.convert, "
+            "pngloss_tpu_torch.cli, pngloss_tpu_torch.suite, "
+            "pngloss_tpu_torch.website, pngloss_tpu_torch.parallel, "
+            "pngloss_tpu_torch.tracing, pngloss_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith(('pngloss_tpu.ops', 'pngloss_tpu.pipeline',"
             " 'pngloss_tpu.parallel', 'pngloss_tpu.compile_cache'))]; "
