@@ -8,12 +8,18 @@ Run from the root of the repository:
 Phases, each of which raises on failure:
   1. the card's name and power limit, torch / CUDA / nvcc versions;
   2. build the CUDA kernels from ``pngloss_tpu_torch/csrc``;
-  3. each kernel (the image kernel in its CLI and its adaptive variant)
-     against its plain PyTorch version on the card, exact, on small shapes
+  3. (3a) each kernel (the image kernel in its CLI and its adaptive
+     variant) against its plain PyTorch version, exact, on small shapes
      that reach every branch (bpp 1-4, strengths 0/3/19/255, bleed
      1/2/32767, transparency, ragged masks, rows failing the MSAD
-     self-check) and at the main path's full shapes; times each kernel
-     beside its plain version;
+     self-check) and at the edges of the kernels' design (rows of 1408 and
+     4096 pixels at bpp 4, bands over 32 lanes at s 255, bleed 1 and 32767
+     with negative dither, a channel's symbol inside the next channel's
+     band, transparent pixels at bpp 2 and 4, ragged widths; their plain
+     versions run on the CPU); (3b) at the main path's full shapes, each
+     kernel's time beside its plain version's, and with ``--parent DIR``
+     (a checkout of an earlier commit) the kernels of both trees timed in
+     turns, parent, this tree, this tree, parent;
   4. PNG bytes of ``compress_many(device="cuda")`` against the scalar
      reference model plus the host encoder, on small mixed images; and
      embedding mode (``optimize_for_average_filter``,
@@ -51,12 +57,24 @@ drives and reads them just after; a kernel of that path that was not
 launched fails the run.
 
 Prints the card line and one JSON line of per-kernel results before the
-last line, ``{"ok": true, "device": {...}}``. Without CUDA, or when any
-phase fails, it exits non-zero and prints no result.
+last line, ``{"ok": true, "device": {...}}``: launches on the main path,
+max abs error against the plain version, the kernel's, the plain
+version's and the library's time (none: no PyTorch call computes any of
+these functions), and the least time the card could take for the same
+work (``bound_ms``, ``bound_by``): the bytes each function must move over
+3.35 TB/s, or its int32 operations over 16.7 TOP/s (64 int32 lanes per SM
+per clock x 132 SMs x 1.98 GHz), whichever is larger. The operations are
+counted term by term from the functions' bodies (the constants above
+``bounds``), with the band candidates that this run's data scans counted
+by the plain versions as they run. Without CUDA, or
+when any phase fails, it exits non-zero and prints no result.
+
+Usage: python3 chip_smoke.py [--parent DIR]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -83,6 +101,55 @@ KERNELS = (
 EMBED_SEED, EMBED_SMALL_SEED, EMBED_SMALL_STRENGTH = SEED + 5, 700, 45
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CLI_KERNELS = ("hist", "row", "image")
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+# 64 int32 lanes per SM per clock x 132 SMs x 1.98 GHz (boost clock)
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# int32 operations of each function, counted from the scalar model's body
+# (pngloss_tpu_torch/reference.py, after optimize_state.c) and, for the
+# row cost, the plain version's (ops/optimize.row_cost): one add,
+# subtract, multiply, divide, compare, select, shift, mask, abs or
+# leading-zero count is one operation; loads and stores are bytes. Bodies
+# that run for some data only (a new best symbol, a frequency tie, the
+# empty-band fallback) are left out, and the band candidates are counted
+# from this run's data, so each count is the least the function does.
+#   predictor, per filter (filter_predict): none, sub, up 0; avg: add,
+#   shift 2; paeth: 3 add/sub, 3 abs, 3 compares, an and, 2 selects 12
+PREDICT_OPS = (0, 0, 0, 2, 12)
+#   pre-pass, per sample: the real-size mask (2 compares, an and) 3; per
+#   filter: predictor, residual subtract (not filter 0), & 0xFF, bin
+#   address, increment
+HIST_MASK_OPS, HIST_BIN_OPS = 3, 3
+#   one channel of one pixel under one filter (_run_pixel), beside its
+#   predictor: carried error add 1; the +-256 wrap (subtract, 2 compares,
+#   select-add, subtract) 5; filtered residual 1; band start (sign test,
+#   remainder, subtract, + s) 4; clamp tests (2 add-compares, mx < mn) 5;
+#   histogram update 1
+CHANNEL_OPS = 17
+#   each band candidate: loop step and test 2, back = symbol + predictor
+#   1, symbol & 0xFF 1, the two frequency compares 2
+CANDIDATE_OPS = 6
+#   per pixel: a colour-difference subtract per channel, and per dither
+#   lane a channel feeds (bpp 1 and 3: 3 lanes, bpp 2 and 4: 4) the Sierra
+#   split: /bleed 1; twos: /16, * and - 3, 4 adds; threes: /8, * and - 3,
+#   2 adds; fours: *2 /9 2, * and - 2, 2 adds; five: /2, - 2, 1 add; the
+#   rest 1 add: 23
+DIFFUSE_OPS, FED_LANES = 23, {1: 3, 2: 4, 3: 3, 4: 4}
+#   image kernel, per channel and neighbour (above, diag, left) of the
+#   derivative error: 2 partial subtracts, their difference, square, sum
+#   5 (+1 multiply by a channel weight of 3: bpp 1 and 2's gray); per
+#   pixel 3 adds joining them into the row's total
+DERIV_OPS, DERIV_PIXEL_OPS = 5, 3
+#   image kernel, per row and filter: over the 256 bins (delta subtract,
+#   test, leading zeros, 33 +, multiply, add) 6 each; then /128, add and
+#   the winner compare 3
+COST_BIN_OPS, COST_ROW_OPS = 6, 3
+#   adaptive variant, per channel of each candidate row: the 5 trial
+#   predictors, and per trial subtract, & 0xFF, < 128, 256 -, select, add 6
+MSAD_TRIAL_OPS = 6
+# why every kernel's library_ms is null
+NO_LIBRARY = ("no PyTorch call computes any of them: the pre-pass needs five "
+              "predictors' residuals before any bincount, and row and "
+              "image are sequential recurrences")
 EMBED_KERNELS = ("hist", "row", "image_adaptive")
 
 
@@ -116,7 +183,9 @@ def _max_err(got, want) -> int:
         return max(_max_err(g, w) for g, w in zip(got, want))
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
-    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if not got.numel():
+        return 0
+    return int((got.long().cpu() - want.long().cpu()).abs().max())
 
 
 def _i32(a, device):
@@ -153,11 +222,13 @@ def synthetic_rgb(rng, n: int, h: int, w: int) -> np.ndarray:
 
 def check_kernels(device) -> dict[str, int]:
     """Phase 3a: every kernel against its plain version on small shapes
-    that reach every branch. Returns the max abs error per kernel (raises
-    unless all are 0)."""
+    that reach every branch, and on the EDGES cases (their plain versions
+    on the CPU). Returns the max abs error per kernel (raises unless all
+    are 0)."""
     import torch
 
     from pngloss_tpu_torch.ops import hist, image, row
+    from pngloss_tpu_torch.ops.edges import EDGES, edge_inputs
 
     rng = np.random.default_rng(SEED + 1)
     errs = {"hist": 0, "row": 0, "image": 0, "image_adaptive": 0}
@@ -193,6 +264,15 @@ def check_kernels(device) -> dict[str, int]:
             errs["image_adaptive"] = max(errs["image_adaptive"], _max_err(
                 image.image_rows(*args, adaptive=True), want))
             oks.update(want[2].tolist())
+    for name in sorted(EDGES):
+        row_args, image_args = edge_inputs(name, device)
+        row_cpu, image_cpu = edge_inputs(name, "cpu")
+        errs["row"] = max(errs["row"], _max_err(
+            row.row_attempt(*row_args), row.row_attempt_ref(*row_cpu)))
+        for key, adaptive in (("image", False), ("image_adaptive", True)):
+            errs[key] = max(errs[key], _max_err(
+                image.image_rows(*image_args, adaptive=adaptive),
+                image.image_rows_ref(*image_cpu, adaptive=adaptive)))
     if any(errs.values()):
         raise AssertionError(f"kernel != plain version: {errs}")
     if oks != {0, 1}:
@@ -200,17 +280,34 @@ def check_kernels(device) -> dict[str, int]:
     return errs
 
 
-def timed_entry(name, fn, ref, shape: str, reps: int, log) -> dict:
-    """A kernel (fn) against its plain version (ref) on the same inputs:
-    exact, or it raises. The plain version runs once and is timed by that
-    run; the kernel by CUDA events over reps calls after a warm-up."""
+def main_inputs(device):
+    """The main path's kernel inputs: 16 x 512x512 RGB at -s 19, as
+    (s, w_real, h_real, rows (B, H, W*bpp) uint8)."""
     import torch
 
+    rgba = synthetic_rgb(np.random.default_rng(SEED + 2), N_IMAGES, SIDE,
+                         SIDE)
+    rows = torch.as_tensor(rgba[..., :3].reshape(N_IMAGES, SIDE, SIDE * 3),
+                           device=device)
+    b = N_IMAGES
+    return (_i32([STRENGTH] * b, device), _i32([SIDE] * b, device),
+            _i32([SIDE] * b, device), rows)
+
+
+def timed_entry(name, fn, ref, shape: str, reps: int, log) -> dict:
+    """A kernel (fn) against its plain version (ref) on the same inputs:
+    exact, or it raises. ``ref(count)`` runs once, adds the band
+    candidates it scans to ``count`` where it has a band (row and image:
+    one sum and one add per channel step), and is timed by that run; the
+    kernel by CUDA events over reps calls after a warm-up."""
+    import torch
+
+    count = torch.zeros((), dtype=torch.int64, device="cuda")
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    want = ref()
+    want = ref(count)
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
@@ -220,7 +317,8 @@ def timed_entry(name, fn, ref, shape: str, reps: int, log) -> dict:
     ms = cuda_ms(fn, reps)
     log(f"  {name:5s} {shape:28s} kernel {ms:10.3f} ms  "
         f"plain {plain_ms:10.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=shape)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=shape,
+                candidates=int(count))
 
 
 def time_kernels(device, log) -> dict[str, dict]:
@@ -233,20 +331,15 @@ def time_kernels(device, log) -> dict[str, dict]:
     from pngloss_tpu_torch.ops import hist, image, row
     from pngloss_tpu_torch.ops.optimize_gpu import row0
 
-    rng = np.random.default_rng(SEED + 2)
-    rgba = synthetic_rgb(rng, N_IMAGES, SIDE, SIDE)
-    rows = torch.as_tensor(rgba[..., :3].reshape(N_IMAGES, SIDE, SIDE * 3),
-                           device=device)
+    s, w_real, h_real, rows = main_inputs(device)
     b, bpp, w = N_IMAGES, 3, SIDE
-    s = _i32([STRENGTH] * b, device)
-    w_real, h_real = _i32([w] * b, device), _i32([SIDE] * b, device)
     out = {}
 
     def entry(name, fn, ref, shape, reps):
         out[name] = timed_entry(name, fn, ref, shape, reps, log)
 
     entry("hist", lambda: hist.original_frequencies(rows, bpp, w_real, h_real),
-          lambda: hist.original_frequencies_ref(rows, bpp, w_real, h_real),
+          lambda _: hist.original_frequencies_ref(rows, bpp, w_real, h_real),
           f"{b}x{SIDE}x{w}x{bpp}", 20)
     ofreq = hist.original_frequencies(rows, bpp, w_real, h_real)
     orig0 = rows[:, 0].reshape(b, w, bpp).to(torch.int32)
@@ -255,20 +348,141 @@ def time_kernels(device, log) -> dict[str, dict]:
     zh = torch.zeros((b, 256), dtype=torch.int32, device=device)
     args = (s, 2, orig0, z, ze, ze, zh, ofreq, w_real)
     entry("row", lambda: row.row_attempt(*args),
-          lambda: row.row_attempt_ref(*args), f"{b}x1x{w}x{bpp} (row 0)", 10)
+          lambda n: row.row_attempt_ref(*args, count=n),
+          f"{b}x1x{w}x{bpp} (row 0)", 10)
     c0, _ = row0(s, 2, orig0, ofreq, w_real)
     args = (s, 2, w_real, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
     entry("image", lambda: image.image_rows(*args),
-          lambda: image.image_rows_ref(*args),
+          lambda n: image.image_rows_ref(*args, count=n),
           f"{b}x{SIDE}x{w}x{bpp} (rows 1-{SIDE - 1})", 2)
     return out
+
+
+def kernel_times(device) -> dict[str, float]:
+    """CUDA-event ms of each kernel alone at the main path's shapes, no
+    plain version: what phase 3b runs for this tree and, in a subprocess,
+    for the tree given with --parent (whose package comes first on
+    sys.path there)."""
+    import torch
+
+    from pngloss_tpu_torch.ops import hist, image, row
+    from pngloss_tpu_torch.ops.optimize_gpu import row0
+
+    s, w_real, h_real, rows = main_inputs(device)
+    b, bpp, w = N_IMAGES, 3, SIDE
+    ofreq = hist.original_frequencies(rows, bpp, w_real, h_real)
+    orig0 = rows[:, 0].reshape(b, w, bpp).to(torch.int32)
+    z = torch.zeros_like(orig0)
+    ze = torch.zeros((b, w + 5, 4), dtype=torch.int32, device=device)
+    zh = torch.zeros((b, 256), dtype=torch.int32, device=device)
+    c0, _ = row0(s, 2, orig0, ofreq, w_real)
+    img = (s, 2, w_real, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
+    return {
+        "hist": cuda_ms(lambda: hist.original_frequencies(
+            rows, bpp, w_real, h_real), 20),
+        "row": cuda_ms(lambda: row.row_attempt(
+            s, 2, orig0, z, ze, ze, zh, ofreq, w_real), 10),
+        "image": cuda_ms(lambda: image.image_rows(*img), 3),
+        "image_adaptive": cuda_ms(
+            lambda: image.image_rows(*img, adaptive=True), 3),
+    }
+
+
+PARENT_TIMES = r"""
+import importlib.util, json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+print(json.dumps(smoke.kernel_times(torch.device("cuda", 0))))
+"""
+
+
+def parent_times(parent: str) -> dict[str, float]:
+    """kernel_times of the tree at ``parent``, built there, in a
+    subprocess."""
+    proc = subprocess.run(
+        [sys.executable, "-c", PARENT_TIMES, os.path.abspath(parent),
+         os.path.abspath(__file__)], cwd=parent, capture_output=True,
+        text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the parent's kernel_times failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def sm_clocks() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def compare_parent(device, parent: str, log) -> dict:
+    """Phase 3b with --parent: the kernels of both trees in turns."""
+    turns = {}
+    for k, who in enumerate(("parent", "this", "this", "parent")):
+        times = (parent_times(parent) if who == "parent"
+                 else kernel_times(device))
+        turns.setdefault(who, []).append(times)
+        log(f"  turn {k + 1} ({who}): " + ", ".join(
+            f"{n} {t:.3f} ms" for n, t in times.items()))
+    log(f"  SM clock after the turns (now, max): {sm_clocks()}")
+    return turns
+
+
+def pixel_ops(bpp: int, deriv: bool, msad: bool) -> int:
+    """Fixed int32 operations of one pixel of one row summed over the 5
+    filters (band candidates apart), from the counts above."""
+    weight3 = {1: 1, 2: 1}.get(bpp, 0)        # channels of weight 3
+    ops = 0
+    for f in range(5):
+        ops += bpp * (PREDICT_OPS[f] + CHANNEL_OPS) + bpp
+        ops += bpp % 2 == 0                     # transparency test (alpha)
+        ops += DIFFUSE_OPS * FED_LANES[bpp]
+        if deriv:
+            ops += 3 * (bpp * DERIV_OPS + weight3) + DERIV_PIXEL_OPS
+        if msad:
+            ops += bpp * (sum(PREDICT_OPS) + 5 * MSAD_TRIAL_OPS)
+    return ops
+
+
+def bounds(name: str, b: int, h: int, w: int, bpp: int,
+           candidates: int = 0) -> tuple[float, str]:
+    """(bound_ms, "bytes" or "operations") of one kernel call at the main
+    path's shapes (every column real): inputs read once and outputs
+    written once over the HBM rate, or the int32 operations over the int32
+    rate. ``candidates``: the band candidates this run's data scans (the
+    plain version's count), for row and image."""
+    px, we = b * w * bpp, b * (w + 5) * 4
+    if name == "hist":
+        nbytes = b * h * w * bpp + 8 * b + 4 * b * 5 * 256
+        ops = b * h * w * bpp * (HIST_MASK_OPS + sum(PREDICT_OPS) + 4
+                                 + 5 * HIST_BIN_OPS)
+    elif name == "row":
+        nbytes = (4 * (2 * px + 2 * we + 256 * b + 5 * 256 * b + 2 * b)
+                  + 4 * 5 * (px + 256 * b + 2 * we))
+        ops = b * w * pixel_ops(bpp, False, False)
+        ops += CANDIDATE_OPS * candidates
+    else:
+        adaptive = name == "image_adaptive"
+        nbytes = (b * h * w * bpp + 4 * (px + 2 * we + 256 * b
+                                         + 5 * 256 * b + 2 * b)
+                  + 4 * (b * (h - 1) * (w * bpp + 1) + b))
+        ops = b * (h - 1) * w * pixel_ops(bpp, True, adaptive)
+        ops += b * (h - 1) * 5 * (256 * COST_BIN_OPS + COST_ROW_OPS)
+        ops += CANDIDATE_OPS * candidates
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_end_to_end(device) -> list[tuple[bytes, int, bytes]]:
     """Phase 4: PNG bytes against the scalar model + host encoder.
     Returns (input PNG, strength, expected output) per small image."""
-    from pngloss_tpu.codec import decode, encode
-    from pngloss_tpu.core.reference import optimize_rgba
+    from pngloss_tpu_torch.codec import decode, encode
+    from pngloss_tpu_torch.reference import optimize_rgba
     from pngloss_tpu_torch.pipeline import compress_many
 
     rng = np.random.default_rng(SEED + 3)
@@ -325,7 +539,7 @@ def check_embedding_small(device) -> list[int]:
     passes with images that take the per-row fallback. Returns its ok."""
     import torch
 
-    from pngloss_tpu.core.reference import optimize_rgba
+    from pngloss_tpu_torch.reference import optimize_rgba
     from pngloss_tpu_torch.pipeline import (
         optimize_for_average_filter,
         optimize_rgba_batch,
@@ -383,7 +597,7 @@ def run_embedding(device, card: str, log):
     inputs and outputs of that run (rgba, q, f)."""
     import torch
 
-    from pngloss_tpu.core.reference import adaptive_filter_for_row
+    from pngloss_tpu_torch.reference import adaptive_filter_for_row
     from pngloss_tpu_torch.ops import hist, image, row
     from pngloss_tpu_torch.ops.optimize_gpu import optimize_rows
     from pngloss_tpu_torch.pipeline import optimize_rgba_batch
@@ -472,7 +686,7 @@ def run_embedding(device, card: str, log):
     args = (s, 2, wr, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
     timing = timed_entry(
         "image_adaptive", lambda: image.image_rows(*args, adaptive=True),
-        lambda: image.image_rows_ref(*args, adaptive=True),
+        lambda n: image.image_rows_ref(*args, adaptive=True, count=n),
         f"{b}x{SIDE}x{SIDE}x{bpp} (rows 1-{SIDE - 1}, embedding batch)", 2,
         log)
     return launches, timing, (rgba, q1, f1)
@@ -481,8 +695,8 @@ def run_embedding(device, card: str, log):
 def run_main_path(device, card: str, log):
     """Phase 5: the main path at full size. Returns the kernel launch
     counts of its first run, its input PNGs and its output bytes."""
-    from pngloss_tpu import tracing
-    from pngloss_tpu.codec import decode, encode
+    from pngloss_tpu_torch import tracing
+    from pngloss_tpu_torch.codec import decode, encode
     from pngloss_tpu_torch.ops import hist, image, row
     from pngloss_tpu_torch.pipeline import compress_many
 
@@ -708,7 +922,7 @@ def _fcgi(path: str, params: dict, body: bytes = b""):
     import socket
     import struct
 
-    from pngloss_tpu.fcgi import (
+    from pngloss_tpu_torch.fcgi import (
         FCGI_BEGIN_REQUEST,
         FCGI_PARAMS,
         FCGI_STDIN,
@@ -944,7 +1158,13 @@ def run_tracing(device, pngs, want, log) -> dict[str, int]:
     return counts
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "GPU.")
+    ap.add_argument("--parent", default=None, metavar="DIR",
+                    help="a checkout of an earlier commit whose kernels "
+                         "phase 3b times in turns with this tree's")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -974,6 +1194,9 @@ def main() -> int:
     errs = check_kernels(device)
     log(f"[3] kernels == plain versions on small shapes: {errs}")
     timing = time_kernels(device, log)
+    if args.parent:
+        log(f"[3b] kernels of {args.parent} and of this tree, in turns")
+        compare_parent(device, args.parent, log)
 
     t0 = time.perf_counter()
     small = check_end_to_end(device)
@@ -1004,12 +1227,25 @@ def main() -> int:
         phase()
         log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name],
-                    max_abs_err=max(errs[name], timing[name]["max_abs_err"]),
-                    ms=timing[name]["ms"], plain_ms=timing[name]["plain_ms"],
-                    shape=timing[name]["shape"])
-               for name, src, rep in KERNELS]
+    kernels = []
+    log(f"[3b] kernels on the main path (SM clock now, max: {sm_clocks()})")
+    for name, src, rep in KERNELS:
+        t = timing[name]
+        bound_ms, bound_by = bounds(name, N_IMAGES, SIDE, SIDE, 3,
+                                    t["candidates"])
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            launches=launches[name],
+            max_abs_err=max(errs[name], t["max_abs_err"]), ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, shape=t["shape"]))
+        log(f"  {name:14s} launches {launches[name]:5d}  kernel "
+            f"{t['ms']:10.3f} ms  bound {bound_ms:.6f} ms ({bound_by}), "
+            f"{bound_ms / t['ms']:.2e} of the kernel's time; "
+            f"{t['candidates']} band candidates; library: none")
+    log(f"  row launches per embedding call (phase 6): "
+        f"{embed_launches['row']}")
+    log(f"  library calls: {NO_LIBRARY}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,6 @@ CUDA tensors run the kernels. Importing the package pulls in neither JAX
 nor CUDA.
 """
 
-from pngloss_tpu.version import __version__
+from pngloss_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

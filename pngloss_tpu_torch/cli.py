@@ -2,8 +2,8 @@
 
 Counterpart of ``pngloss_tpu/cli.py``. The option surface, validation,
 exit codes, output naming, overwrite guard, atomic writes, stdin/stdout
-modes and verbose reporting are ``pngloss_tpu.cli``'s own, imported (that
-module imports no JAX at its top); the parts that compress call the
+modes and verbose reporting are copies of ``pngloss_tpu.cli``'s (the port
+imports nothing of the JAX package); the parts that compress call the
 port's pipeline on ``device`` (default ``"cuda"``) or over ``mesh``.
 Stdout bytes, output files, exit codes and stderr lines equal
 ``pngloss_tpu.cli.run``'s for the same arguments, apart from the version
@@ -16,36 +16,166 @@ instead. ``-h``, ``-V`` and option errors need no card.
 
 from __future__ import annotations
 
+import getopt
 import io
 import os
 import sys
+import tempfile
 
-from pngloss_tpu import codec
-from pngloss_tpu.cli import (  # noqa: F401  (the exit codes are re-exported)
-    CANT_WRITE_ERROR,
-    INVALID_ARGUMENT,
-    LIBPNG_FATAL_ERROR,
-    MISSING_ARGUMENT,
-    NOT_OVERWRITING_ERROR,
-    READ_ERROR,
-    SUCCESS,
-    TOO_LARGE_FILE,
-    TOO_LOW_QUALITY,
-    USAGE,
-    Options,
-    _print_wrote,
-    _report_cannot_open,
-    _report_decode_error,
-    _report_input_color,
-    _verbose_summary,
-    _write_atomic,
-    add_filename_extension,
-    parse_options,
-)
-from pngloss_tpu.version import __version__
+from pngloss_tpu_torch import codec
+from pngloss_tpu_torch.version import __version__
 
+# pngloss_error (rwpng.h:23-38) — enum values double as process exit codes
+SUCCESS = 0
+MISSING_ARGUMENT = 1
+READ_ERROR = 2
+INVALID_ARGUMENT = 4
+NOT_OVERWRITING_ERROR = 15
+CANT_WRITE_ERROR = 16
+OUT_OF_MEMORY_ERROR = 17
+PNG_OUT_OF_MEMORY_ERROR = 24
+LIBPNG_FATAL_ERROR = 25
+WRONG_INPUT_COLOR_TYPE = 26
+LIBPNG_INIT_ERROR = 35
+TOO_LARGE_FILE = 98
+TOO_LOW_QUALITY = 99
 # not in the reference's enum (rwpng.h:23-38): CUDA asked for, not there
 NO_CUDA = 3
+
+# user documentation wording follows the reference tool's help text
+# (PNGLOSS_USAGE, pngloss.c:28-51) so reference users see the interface
+# they know; only the header line and the TPU note differ
+USAGE = """\
+usage:  pngloss [options] -- pngfile [pngfile ...]
+        pngloss [options] - >stdout <stdin
+
+options:
+  -s, --strength 19 how much quality to sacrifice, from 0 to 100 (default 19)
+  -b, --bleed 2     bleed divider, from 1 (full dithering) to 32767 (none)
+  -f, --force       overwrite existing output files
+  -o, --output file destination file path to use instead of --ext
+  -v, --verbose     print status messages
+  -q, --quiet       don't print status messages (default, overrides -v)
+  -V, --version     print version number
+  --skip-if-larger  only save converted files if they're smaller than original
+  --ext new.png     set custom suffix/extension for output filenames
+  --strip           remove optional metadata (default on Mac)
+
+Lossily compresses a PNG by using more compressible colors that are
+close enough to the original color values. The threshold determining
+what is close enough is controlled by the strength parameter. The output
+filename is the same as the input name except that it ends in "-loss.png"
+or your custom extension (unless the input is stdin, in which case the
+compressed image will go to stdout).  If you pass the special output path
+"-" and a single input file, that file will be processed and the
+compressed image will go to stdout. The default behavior if the output
+file exists is to skip the conversion; use --force to overwrite.
+"""
+
+_LONG_OPTS = [
+    "verbose", "quiet", "force", "no-force", "ext=", "skip-if-larger",
+    "output=", "strip", "version", "help", "strength=", "bleed=",
+]
+
+
+class Options:
+    def __init__(self):
+        self.strength = 19
+        self.bleed_divider = 2
+        self.extension: str | None = None
+        self.output_file_path: str | None = None
+        self.files: list[str] = []
+        self.using_stdin = False
+        self.using_stdout = False
+        self.force = False
+        self.skip_if_larger = False
+        self.strip = False
+        self.print_help = False
+        self.print_version = False
+        self.missing_arguments = False
+        self.verbose = False
+
+
+def parse_options(argv: list[str]) -> tuple[Options, int]:
+    """pngloss_parse_options (pngloss_opts.c:38-138)."""
+    o = Options()
+    try:
+        opts, args = getopt.gnu_getopt(
+            argv, "vqfo:Vhs:b:", _LONG_OPTS)
+    except getopt.GetoptError as e:
+        print(e, file=sys.stderr)
+        return o, INVALID_ARGUMENT
+
+    for flag, val in opts:
+        if flag in ("-v", "--verbose"):
+            o.verbose = True
+        elif flag in ("-q", "--quiet"):
+            o.verbose = False
+        elif flag in ("-f", "--force"):
+            o.force = True
+        elif flag == "--no-force":
+            o.force = False
+        elif flag == "--ext":
+            o.extension = val
+        elif flag in ("-o", "--output"):
+            if o.output_file_path:
+                print("--output option can be used only once", file=sys.stderr)
+                return o, INVALID_ARGUMENT
+            if val == "-":
+                o.using_stdout = True
+            else:
+                o.output_file_path = val
+        elif flag == "--skip-if-larger":
+            o.skip_if_larger = True
+        elif flag == "--strip":
+            o.strip = True
+        elif flag in ("-h", "--help"):
+            o.print_help = True
+        elif flag in ("-V", "--version"):
+            o.print_version = True
+        elif flag in ("-s", "--strength"):
+            if not val.isdigit():
+                print("-s, --strength requires a numeric argument", file=sys.stderr)
+                return o, INVALID_ARGUMENT
+            o.strength = int(val)
+        elif flag in ("-b", "--bleed"):
+            if not val.isdigit():
+                print("-b, --bleed requires a numeric argument", file=sys.stderr)
+                return o, INVALID_ARGUMENT
+            o.bleed_divider = int(val)
+
+    if args:
+        if len(args) == 1 and args[0] == "-":
+            o.using_stdin = True
+            o.using_stdout = o.output_file_path is None or o.using_stdout
+        o.files = args
+    elif len(argv) == 0:
+        o.missing_arguments = True
+    return o, SUCCESS
+
+
+def add_filename_extension(filename: str, newext: str) -> str:
+    """Insert the suffix before a trailing .png, else append (pngloss.c:319)."""
+    if filename.lower().endswith(".png"):
+        return filename[:-4] + newext
+    return filename + newext
+
+
+def _write_atomic(outname: str, data: bytes) -> int:
+    """Atomic write via temp file + rename (pngloss.c:392-423)."""
+    d = os.path.dirname(outname) or "."
+    try:
+        fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+        os.replace(tmp, outname)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except Exception:
+            pass
+        return CANT_WRITE_ERROR
+    return SUCCESS
 
 
 def _compress_one(
@@ -95,6 +225,18 @@ def _compress_one(
     return out, None, SUCCESS, img
 
 
+def _print_wrote(opts, out: bytes, data: bytes, img) -> None:
+    if not opts.verbose:
+        return
+    kb = (len(out) + 500) // 1000
+    percent = 100.0 * len(out) / len(data)
+    print(f"  wrote {kb}KB file ({percent:.1f}% of original)", file=sys.stderr)
+    meta = sum(len(c.data) + 12 for c in img.chunks)
+    if meta > 0:
+        print(f"  copied {(meta + 500) // 1000}KB of additional PNG metadata",
+              file=sys.stderr)
+
+
 def _print_full_version(file) -> None:
     """The version header (pngloss.c:55-70) for the port, with the
     versions of its dependencies. Imports no JAX and does not initialise
@@ -112,6 +254,41 @@ def _print_full_version(file) -> None:
             else "no CUDA")
     print(f"   Using zlib {zlib.ZLIB_VERSION}, torch {torch.__version__} "
           f"({cuda}).", file=file)
+
+
+def _report_cannot_open(filename: str) -> None:
+    """read_image's fopen failure line (pngloss.c:441)."""
+    print(f"  error: cannot open {filename} for reading", file=sys.stderr)
+
+
+def _report_decode_error(e: Exception, filename: str,
+                         using_stdin: bool = False) -> None:
+    """The libpng error-handler line (rwpng.c:652) followed by
+    read_image's cannot-decode line (pngloss.c:453)."""
+    print(f"  error: {e} (libpng failed)", file=sys.stderr)
+    print("  error: cannot decode image "
+          + ("from stdin" if using_stdin else os.path.basename(filename)),
+          file=sys.stderr)
+
+
+def _report_input_color(img, data_len: int) -> None:
+    """Verbose read-size line plus the input-color report chain
+    (pngloss.c:238-254); shared by the sequential and batched modes."""
+    print(f"  read {(data_len + 500) // 1000}KB file", file=sys.stderr)
+    if img.icc_note == "iccp":
+        print("  used embedded ICC profile to transform image to sRGB"
+              " colorspace", file=sys.stderr)
+    elif img.icc_note == "gama_chrm":
+        print("  used gAMA and cHRM chunks to transform image to sRGB"
+              " colorspace", file=sys.stderr)
+    elif img.icc_note == "iccp_warn_gray":
+        print("  warning: ignored ICC profile in GRAY colorspace",
+              file=sys.stderr)
+    elif img.color_transform == codec.pypng.COLOR_SRGB:
+        print("  passing sRGB tag from the input", file=sys.stderr)
+    elif img.gamma != 0.45455:
+        print(f"  converted image from gamma {1.0 / img.gamma:2.1f}"
+              " to gamma 2.2", file=sys.stderr)
 
 
 def _resolve(device, mesh):
@@ -249,6 +426,21 @@ def run(argv: list[str], stdin: io.RawIOBase | None = None,
 
     _verbose_summary(opts, error_count, skipped_count, file_count)
     return latest_error
+
+
+def _verbose_summary(opts, error_count, skipped_count, file_count):
+    if not opts.verbose:
+        return
+    s = lambda n: "" if n == 1 else "s"
+    if error_count:
+        print(f"There were errors compressing {error_count} file{s(error_count)}"
+              f" out of a total of {file_count} file{s(file_count)}.",
+              file=sys.stderr)
+    if skipped_count:
+        print(f"Skipped {skipped_count} file{s(skipped_count)} out of a total"
+              f" of {file_count} file{s(file_count)}.", file=sys.stderr)
+    if not skipped_count and not error_count:
+        print(f"Compressed {file_count} image{s(file_count)}.", file=sys.stderr)
 
 
 def _run_batched(opts, *, mesh) -> int:

@@ -17,18 +17,22 @@
 // exactly in 64 bits), the minimum-cost winner with ties to the lowest
 // filter, and the winner's row, histogram and dither rows carried on.
 //
-// Bound: the same per-pixel latency chain as the row kernel, H-1 rows
-// long, so the time of one image is latency, not bytes or operations; the
-// card is filled by running one image per block. The MSAD pass adds one
-// read of the candidate row and the previous row per warp, lane-strided
-// and off the chain. Design: one block per image, one warp per filter;
-// the 5 working histograms, the winner's histogram and the original
-// frequencies stay in shared memory for the whole image; the candidates'
-// rows and dither rows go to global scratch (a few KB per row, cache
-// resident). After each row the block meets at __syncthreads, thread 0
-// picks the winner through shared memory, and all threads copy the
-// winner's state. The TPU kernel's lane rolls, selection matmuls and bf16
-// tricks are TPU forms of this broadcast and are not needed here.
+// Bound: the same per-channel latency chain as the row kernel, (H-1) * W *
+// bpp steps long per image, so the time of one image is latency, not
+// bytes or operations; the card is filled by running one image per block.
+// The MSAD pass adds one read of the candidate row and the previous row
+// per warp, lane-strided and off the chain. Design: one block per image,
+// one warp per filter, quantize.cuh's chain per warp (histogram in
+// registers, two-reduction selection, inputs two pixels ahead, invariant
+// divisors). The winner's state passes by index: each filter writes its
+// candidate row and next dither rows into one of two global sets, and the
+// next row reads the winner's set in place while writing the other. After
+// each row the block meets once to post the costs; every thread picks the
+// first minimum itself, the winning warp posts its histogram through
+// shared memory, and the block meets again. The winner's row goes on to
+// qrows off the chain: the warps store it (the same values) while they
+// read it as the next row's previous row. The TPU kernel's lane rolls, selection matmuls and
+// bf16 tricks are TPU forms of this broadcast and are not needed here.
 
 #include <climits>
 #include <cstdint>
@@ -44,8 +48,9 @@ namespace {
 // then summed over the warp; ties go to the earliest trial. Every lane of
 // the warp must call it; all get the answer.
 template <int BPP>
-__device__ bool msad_passes(int f, int lane, int wr, const int* q,
-                            const int* qprev) {
+__device__ bool msad_passes(int f, int lane, int wr,
+                            const int* __restrict__ q,
+                            const int* __restrict__ qprev) {
   int sums[plk::kFilters] = {0, 0, 0, 0, 0};
   for (int x = lane; x < wr; x += plk::kWarp) {
 #pragma unroll
@@ -75,18 +80,19 @@ __device__ bool msad_passes(int f, int lane, int wr, const int* q,
 }
 
 template <int BPP, bool ADAPTIVE>
-__global__ void image_kernel(const int* s, int bleed, const int* w_real,
-                             const int* ofreq, const uint8_t* rows,
-                             const int* qprev0, const int* e00,
-                             const int* e10, const int* hist0, int* qrows,
-                             int* filt, int* ok, int* cand, int* e0n5,
-                             int* e1n5, int* e0w, int* e1w, int H, int W) {
-  __shared__ int hw[256];                     // winner's histogram
-  __shared__ int hs[plk::kFilters][256];      // candidates' histograms
-  __shared__ int os[plk::kFilters][256];      // original frequencies
+__global__ void __launch_bounds__(plk::kFilters * plk::kWarp)
+image_kernel(const int* __restrict__ s, int bleed,
+             const int* __restrict__ w_real, const int* __restrict__ ofreq,
+             const uint8_t* __restrict__ rows,
+             const int* __restrict__ qprev0, const int* __restrict__ e00,
+             const int* __restrict__ e10, const int* __restrict__ hist0,
+             int* __restrict__ qrows, int* __restrict__ filt,
+             int* __restrict__ ok, int* cand, int* e0n5, int* e1n5, int B,
+             int H, int W) {
+  __shared__ int os[plk::kFilters][256];      // rank keys (rank_keys)
+  __shared__ int hw[256];                     // histogram at row start
   __shared__ long long cost[plk::kFilters];
   __shared__ bool passing[plk::kFilters];
-  __shared__ int winner;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -95,54 +101,68 @@ __global__ void image_kernel(const int* s, int bleed, const int* w_real,
   const long long wb = static_cast<long long>(W) * BPP;
   const long long we = static_cast<long long>(W + 5) * 4;
   const int sb = s[b], wr = w_real[b];
+  const plk::Divisor band = plk::make_divisor(sb + 1);
+  const plk::Divisor bl = plk::make_divisor(bleed);
   const uint8_t* img = rows + b * wb * H;
-  int* my_e0 = e0w + b * we;
-  int* my_e1 = e1w + b * we;
   int* my_q = qrows + b * wb * (H - 1);
-  const long long bf = static_cast<long long>(b) * plk::kFilters + f;
+  // candidate k's row and next dither rows in set p (two sets, ping-pong)
+  auto set = [&](int p, int k) {
+    return (static_cast<long long>(p) * B + b) * plk::kFilters + k;
+  };
   int all_rows_pass = 1;                      // read by thread 0 only
 
   for (int i = tid; i < plk::kFilters * 256; i += blockDim.x)
     os[i / 256][i % 256] = ofreq[b * plk::kFilters * 256 + i];
-  for (int i = tid; i < 256; i += blockDim.x) hw[i] = hist0[b * 256 + i];
-  for (long long i = tid; i < we; i += blockDim.x) {
-    my_e0[i] = e00[b * we + i];
-    my_e1[i] = e10[b * we + i];
-  }
   __syncthreads();
+  plk::rank_keys(os[f], lane);
+  plk::Hist hs;
+  hs.rk = os[f];
+  for (int i = tid; i < 256; i += blockDim.x) hw[i] = hist0[b * 256 + i];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < plk::kSlots; ++j) hs.h[j] = hw[lane + plk::kWarp * j];
 
-  for (int y = 1; y < H; ++y) {
-    for (int t = lane; t < 256; t += plk::kWarp) hs[f][t] = hw[t];
-    __syncwarp();
-    const int* qprev = y == 1 ? qprev0 + b * wb : my_q + (y - 2) * wb;
-    const long long err = plk::quantize_row_warp<BPP, true, uint8_t>(
-        f, lane, sb, bleed, wr, W, img + y * wb, img + (y - 1) * wb, qprev,
-        my_e0, my_e1, hs[f], os[f], cand + bf * wb, e0n5 + bf * we,
-        e1n5 + bf * we);
+  const int* qprev = qprev0 + b * wb;
+  const int* e0 = e00 + b * we;
+  const int* e1 = e10 + b * we;
+  for (int y = 1, p = 0; y < H; ++y, p ^= 1) {
+    const long long mine = set(p, f);
+    int* qrow = cand + mine * wb;
+    const long long err = plk::quantize_row<BPP, true, uint8_t>(
+        f, lane, sb, band, bl, wr, W, img + y * wb, img + (y - 1) * wb,
+        qprev, e0, e1, hs, qrow, e0n5 + mine * we, e1n5 + mine * we,
+        y >= 2 ? my_q + (y - 2) * wb : nullptr);
     long long bits = 0;
-    for (int t = lane; t < 256; t += plk::kWarp) {
-      const int fr = hs[f][t];
+#pragma unroll
+    for (int j = 0; j < plk::kSlots; ++j) {
+      const int fr = hs.h[j];
       if (fr > 0)
-        bits += static_cast<long long>(fr - hw[t]) * (33 + __clz(fr));
+        bits += static_cast<long long>(fr - hw[lane + plk::kWarp * j]) *
+                (33 + __clz(fr));
     }
     for (int off = plk::kWarp / 2; off > 0; off /= 2)
       bits += __shfl_xor_sync(plk::kFull, bits, off);
     bool pass = true;
     if constexpr (ADAPTIVE) {
-      // quantize_row_warp ends in __syncwarp: lane 0's stores of the
-      // candidate row are visible to the whole warp
-      pass = msad_passes<BPP>(f, lane, wr, cand + bf * wb, qprev);
+      // every lane stored the same values of the candidate row, and
+      // quantize_row_warp ends in __syncwarp, so the whole warp sees them
+      pass = msad_passes<BPP>(f, lane, wr, qrow, qprev);
     }
     if (lane == 0) {
       cost[f] = pass ? bits + err / 128 : LLONG_MAX;
       passing[f] = pass;
     }
     __syncthreads();
+    int best = 0;
+#pragma unroll
+    for (int k = 1; k < plk::kFilters; ++k)
+      if (cost[k] < cost[best]) best = k;
+    if (f == best) {
+#pragma unroll
+      for (int j = 0; j < plk::kSlots; ++j)
+        hw[lane + plk::kWarp * j] = hs.h[j];
+    }
     if (tid == 0) {
-      int best = 0;
-      for (int k = 1; k < plk::kFilters; ++k)
-        if (cost[k] < cost[best]) best = k;
-      winner = best;
       filt[static_cast<long long>(b) * (H - 1) + y - 1] = best;
       if constexpr (ADAPTIVE) {
         bool any = false;
@@ -151,34 +171,35 @@ __global__ void image_kernel(const int* s, int bleed, const int* w_real,
       }
     }
     __syncthreads();
-    const long long wf = static_cast<long long>(b) * plk::kFilters + winner;
-    for (long long i = tid; i < wb; i += blockDim.x)
-      my_q[(y - 1) * wb + i] = cand[wf * wb + i];
-    for (long long i = tid; i < we; i += blockDim.x) {
-      my_e0[i] = e0n5[wf * we + i];
-      my_e1[i] = e1n5[wf * we + i];
-    }
-    for (int i = tid; i < 256; i += blockDim.x) hw[i] = hs[winner][i];
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < plk::kSlots; ++j) hs.h[j] = hw[lane + plk::kWarp * j];
+    const long long won = set(p, best);
+    qprev = cand + won * wb;
+    e0 = e0n5 + won * we;
+    e1 = e1n5 + won * we;
   }
+  // the last row's winner, which no later row copies
+  for (long long i = tid; i < wb; i += blockDim.x)
+    my_q[(H - 2) * wb + i] = qprev[i];
   if (ADAPTIVE && tid == 0) ok[b] = all_rows_pass;
 }
 
 }  // namespace
 
 // s, w_real (B,); ofreq (B, 5, 256); rows (B, H, W*bpp) uint8; row-0
-// winner state qprev0 (B, W, bpp), e00, e10 (B, W+5, 4), hist0 (B, 256)
-// -> qrows (B, H-1, W, bpp), filt (B, H-1); ok (B,) selects embedding
-// mode's MSAD self-check on every row when not null (1 = every row had a
-// passing filter); scratch cand (B, 5, W, bpp), e0n5, e1n5 (B, 5, W+5, 4),
-// e0w, e1w (B, W+5, 4); all int32 but rows.
+// winner state qprev0 (B, W, bpp), e00, e10 (B, W+5, 4), 16-byte aligned,
+// hist0 (B, 256) -> qrows (B, H-1, W, bpp), filt (B, H-1); ok (B,) selects
+// embedding mode's MSAD self-check on every row when not null (1 = every
+// row had a passing filter); scratch: two sets of the 5 candidates' rows
+// cand (2, B, 5, W, bpp) and next dither rows e0n5, e1n5 (2, B, 5, W+5, 4),
+// 16-byte aligned; all int32 but rows.
 extern "C" int plk_image_rows(const void* s, int bleed, const void* w_real,
                               const void* ofreq, const void* rows,
                               const void* qprev0, const void* e00,
                               const void* e10, const void* hist0,
                               void* qrows, void* filt, void* ok, void* cand,
-                              void* e0n5, void* e1n5, void* e0w, void* e1w,
-                              int B, int H, int W, int bpp, void* stream) {
+                              void* e0n5, void* e1n5, int B, int H, int W,
+                              int bpp, void* stream) {
   if (B <= 0 || H < 2) return static_cast<int>(cudaGetLastError());
   const dim3 grid(B), block(plk::kFilters * plk::kWarp);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -189,8 +210,7 @@ extern "C" int plk_image_rows(const void* s, int bleed, const void* w_real,
       static_cast<const int*>(e10), static_cast<const int*>(hist0),      \
       static_cast<int*>(qrows), static_cast<int*>(filt),                 \
       static_cast<int*>(ok), static_cast<int*>(cand),                    \
-      static_cast<int*>(e0n5), static_cast<int*>(e1n5),                  \
-      static_cast<int*>(e0w), static_cast<int*>(e1w), H, W
+      static_cast<int*>(e0n5), static_cast<int*>(e1n5), B, H, W
 #define PLK_IMAGE_LAUNCH(BPP)                                           \
   if (ok)                                                               \
     image_kernel<BPP, true><<<grid, block, 0, st>>>(PLK_IMAGE_ARGS);    \

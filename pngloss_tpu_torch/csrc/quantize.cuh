@@ -1,16 +1,41 @@
 // Device functions shared by the row kernel (row.cu) and the image kernel
 // (image.cu): the per-pixel predictor, the band of candidate symbols, the
-// warp-wide three-level symbol selection, and the pixel loop of one row
-// under one filter with Sierra-lite diffusion.
+// warp-wide symbol selection, and the pixel loop of one row under one
+// filter with Sierra-lite diffusion.
 //
 // One warp quantizes one (image, filter) row. The pixel recurrence is
 // sequential, so every lane of the warp runs the same scalar chain in
-// registers; only the band scan is spread over the lanes: lane l reads the
-// band offsets u = l, l+32, ... of the shared-memory histogram, and three
-// warp reductions (redux.sync) find the maximum frequency, then the maximum
-// original frequency, then the original symbol or the lowest u. Lane 0
-// commits the histogram update and the stores. Integer division is C's:
-// it truncates toward zero, as the reference does.
+// registers; only the band scan is spread over the lanes. What bounds it
+// is the latency of that chain, W * bpp channel steps per row (band ->
+// selection -> histogram update -> next channel; selection -> diffusion
+// -> the next pixel's band), not bytes or operations: ablations on an H100
+// showed no single part dominating, and a warp issues in order, so what
+// the compiler cannot overlap is paid in full. The design:
+//   * the pixel body has no branch (see quantize_row_warp), and the
+//     filter id is a run-time value with a select-based predictor: one
+//     copy of the loop, where one copy per filter overflowed the
+//     instruction cache and ran 1.7x slower;
+//   * the adaptive histogram lives in registers, 8 entries per lane (lane
+//     l holds symbols l, l+32, ..., l+224), so an update is a predicated
+//     add in the owning lane: no shared-memory store, no __syncwarp;
+//   * the selection takes two warp reductions, not three: the maximum
+//     frequency, then the maximum of a 32-bit key (the rank of the
+//     original frequency among the filter's 256, computed once per block
+//     into shared memory, then "is the original symbol", then the lowest
+//     offset); bands wider than the warp (s >= 32) take a separate loop;
+//   * a pixel's channels read the histogram as it stood at the pixel's
+//     start, in parallel, and patch in the symbols of the channels before
+//     them, so only the patch sits between one channel and the next;
+//   * the row's inputs are loaded two pixels ahead into registers, so no
+//     global load sits between one pixel's symbol and the next band;
+//   * the divisions by s+1 and by bleed, fixed for the launch, multiply by
+//     an invariant-divisor magic number (plain division ran the row and
+//     image kernels 24% slower on an H100; tests/test_torch_divide.py
+//     mirrors the arithmetic and holds this code to C division), and the
+//     Sierra split runs on magnitudes with one sign restore;
+//   * the pixel loop is unrolled by two, so one pixel's diffusion overlaps
+//     the next one's bands.
+// Integer division is C's: it truncates toward zero, as the reference does.
 #pragma once
 
 #include <cstdint>
@@ -20,19 +45,43 @@ namespace plk {
 
 constexpr int kFilters = 5;
 constexpr int kWarp = 32;
+constexpr int kSlots = 256 / kWarp;   // histogram entries per lane
 constexpr unsigned kFull = 0xffffffffu;
 
+// Exact unsigned division by a divisor fixed for the launch: the
+// round-up method of Granlund and Montgomery (1994, fig. 4.1), exact for
+// every 32-bit dividend and every divisor >= 1 (tests/test_torch_divide.py).
+struct Divisor {
+  unsigned m;   // magic multiplier
+  int s1, s2;   // shifts
+};
+
+__host__ __device__ inline Divisor make_divisor(unsigned d) {
+  int l = 0;
+  while ((1ull << l) < d) ++l;   // ceil(log2(d))
+  const unsigned long long m =
+      ((1ull << 32) * ((1ull << l) - d)) / d + 1;
+  return Divisor{static_cast<unsigned>(m), l < 1 ? l : 1, l > 1 ? l - 1 : 0};
+}
+
+__device__ __forceinline__ unsigned udiv(unsigned n, Divisor d) {
+  const unsigned t = __umulhi(n, d.m);
+  return (t + ((n - t) >> d.s1)) >> d.s2;
+}
+
 // PNG predictor of filter f on quantized neighbour bytes
-// (optimize_state.c:575-613).
-__device__ __forceinline__ int predict(int f, int above, int diag, int left) {
-  if (f == 0) return 0;
-  if (f == 1) return left;
-  if (f == 2) return above;
-  if (f == 3) return (above + left) >> 1;
-  int p = above - diag, pd = left - diag;
-  int pa = abs(p), pb = abs(pd), pc = abs(p + pd);
-  if (pa <= pb && pa <= pc) return left;
-  return pb <= pc ? above : diag;
+// (optimize_state.c:575-613), as selects: f is the warp's, and a branch on
+// it would split the pixel body.
+__device__ __forceinline__ int predict(int f, int above, int diag,
+                                       int left) {
+  const int p = above - diag, pd = left - diag;
+  const int pa = abs(p), pb = abs(pd), pc = abs(p + pd);
+  const int paeth = pa <= pb && pa <= pc ? left : (pb <= pc ? above : diag);
+  return f == 0 ? 0
+       : f == 1 ? left
+       : f == 2 ? above
+       : f == 3 ? (above + left) >> 1
+       : paeth;
 }
 
 // Dither lane a channel reads its carried error from: gray+alpha's alpha
@@ -57,6 +106,43 @@ __device__ __forceinline__ constexpr int channel_weight(int c) {
   return BPP == 1 ? 3 : (BPP == 2 ? (c == 0 ? 3 : 1) : 1);
 }
 
+__device__ __forceinline__ int lane_of(const int4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// a[j] for a run-time j in [0, 8): a tree of selects, so the array stays in
+// registers.
+__device__ __forceinline__ int pick8(const int (&a)[kSlots], int j) {
+  const int b0 = j & 1, b1 = j & 2, b2 = j & 4;
+  const int l0 = b0 ? a[1] : a[0], l1 = b0 ? a[3] : a[2];
+  const int l2 = b0 ? a[5] : a[4], l3 = b0 ? a[7] : a[6];
+  const int m0 = b1 ? l1 : l0, m1 = b1 ? l3 : l2;
+  return b2 ? m1 : m0;
+}
+
+// Turns one filter's original frequencies ofr[0..255], in shared memory,
+// into rank keys in place: ofr[t] = #{t' : ofr[t'] < ofr[t]} << 9. The rank
+// keeps the order and the ties of the frequencies in 8 bits, so the
+// selection's second level fits one 32-bit key. Every lane of the warp
+// must call it.
+__device__ __forceinline__ void rank_keys(int* ofr, int lane) {
+  int o[kSlots], rk[kSlots];
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    o[j] = ofr[lane + kWarp * j];
+    rk[j] = 0;
+  }
+  for (int t = 0; t < 256; ++t) {
+    const int v = ofr[t];
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) rk[j] += v < o[j];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) ofr[lane + kWarp * j] = rk[j] << 9;
+  __syncwarp();
+}
+
 // The band of candidate symbols for one channel (optimize_state.c:167-210):
 // the original residual with the +-256 predictor wrap, truncating division
 // by s+1, the clamp to bytes and the exact-saturation fallback.
@@ -68,14 +154,13 @@ struct Band {
 };
 
 __device__ __forceinline__ Band make_band(int orig, int here, int pred,
-                                          int s) {
+                                          int s, Divisor band) {
   int osym = orig - pred;
-  int predw = pred + (osym < -128 ? -256 : (osym > 127 ? 256 : 0));
+  const int predw = pred + (osym < -128 ? -256 : (osym > 127 ? 256 : 0));
   osym = orig - predw;
-  int filt = here - predw;
-  int band = s + 1;
-  int q = abs(filt) / band;
-  int mn = filt < 0 ? -q * band - s : q * band;
+  const int filt = here - predw;
+  const int qb = static_cast<int>(udiv(abs(filt), band)) * (s + 1);
+  int mn = filt < 0 ? -qb - s : qb;
   int mx = mn + s;
   if (mn + predw < 0) mn = -predw;
   if (mx + predw > 255) mx = 255 - predw;
@@ -86,54 +171,127 @@ __device__ __forceinline__ Band make_band(int orig, int here, int pred,
   return Band{mn, mx - mn, osym - mn, predw};
 }
 
-// Three-level selection (optimize_state.c:212-248) over the band offsets
-// u = 0..width of symbol byte (start + u) & 0xFF: highest adaptive
-// frequency, then highest original frequency, then the original symbol,
-// then the lowest u. Every lane of the warp must call it; all get u_best.
-__device__ __forceinline__ int select_symbol(const int* hist, const int* ofr,
-                                             int start, int width, int u_orig,
-                                             int lane) {
-  int bf = -1, bo = -1, bv = 256;
-  for (int u = lane; u <= width; u += kWarp) {
-    int t = (start + u) & 0xFF;
-    int fr = hist[t], o = ofr[t];
-    int v = (u == u_orig) ? -1 : u;
-    if (fr > bf || (fr == bf && (o > bo || (o == bo && v < bv)))) {
-      bf = fr;
-      bo = o;
-      bv = v;
-    }
-  }
-  int fmax = __reduce_max_sync(kFull, bf);
-  int omax = __reduce_max_sync(kFull, bf == fmax ? bo : -1);
-  int vmin = __reduce_min_sync(kFull, (bf == fmax && bo == omax) ? bv : 256);
-  return vmin < 0 ? u_orig : vmin;
+// What one lane reads for a band narrower than the warp: its one candidate
+// u = (lane - start) & 31, symbol t = start + u (t = lane mod 32, so the
+// lane owns it), its histogram slot and its rank key.
+struct Narrow {
+  int u, t, slot;
+  bool in;      // u lies in the band
+  int fr;       // frequency at the pixel's start
+  int key;      // rank key | is-original << 8 | (255 - u)
+};
+
+__device__ __forceinline__ Narrow narrow(const Band& bd, int lane,
+                                         const int (&h)[kSlots],
+                                         const int* rk) {
+  const int start = bd.mn & 0xFF;
+  Narrow n;
+  n.u = (lane - start) & (kWarp - 1);
+  n.t = (start + n.u) & 0xFF;
+  n.slot = n.t >> 5;
+  n.in = n.u <= bd.width;
+  n.fr = pick8(h, n.slot);
+  n.key = rk[n.t] | (n.u == bd.u_orig ? 256 : 0) | (255 - n.u);
+  return n;
 }
 
+// Three-level selection (optimize_state.c:212-248) as two reductions:
+// highest adaptive frequency, then the highest key (original frequency's
+// rank, then the original symbol, then the lowest u). Every lane of the
+// warp must call it with its lane-best (frequency, key), -1 for a lane
+// with no candidate; all get u_best.
+__device__ __forceinline__ int select_u(int bf, int bkey) {
+  const int fmax = __reduce_max_sync(kFull, bf);
+  const unsigned k = __reduce_max_sync(
+      kFull, bf == fmax ? static_cast<unsigned>(bkey) : 0u);
+  return 255 - static_cast<int>(k & 0xFF);
+}
+
+// Offset of the chosen symbol in a band of any width: lane l scans its 8
+// symbols l + 32j (the histogram as it stands now).
+__device__ __forceinline__ int select_wide(const Band& bd, int lane,
+                                           const int (&h)[kSlots],
+                                           const int* rk) {
+  const int start = bd.mn & 0xFF;
+  int fr[kSlots], key[kSlots];
+  int bf = -1;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int u = (lane + kWarp * j - start) & 0xFF;
+    fr[j] = u <= bd.width ? h[j] : -1;
+    key[j] = rk[lane + kWarp * j] | (u == bd.u_orig ? 256 : 0) | (255 - u);
+    bf = max(bf, fr[j]);
+  }
+  int bkey = 0;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j)
+    if (fr[j] == bf) bkey = max(bkey, key[j]);
+  return select_u(bf, bkey);
+}
+
+// The row inputs a pixel's band needs, loaded two pixels ahead of it.
+template <int BPP>
+struct Pixel {
+  int above[BPP];            // quantized previous row
+  int o[BPP];                // originals
+  int4 e0;                   // dither row 0, column x+2 (carried error)
+};
+
+template <int BPP, typename OrigT>
+__device__ __forceinline__ void load_pixel(Pixel<BPP>& p, int x, int W,
+                                           const OrigT* __restrict__ orig,
+                                           const int* __restrict__ qprev,
+                                           const int* __restrict__ e0) {
+  x = min(x, W - 1);   // past the row: a valid column, never used
+#pragma unroll
+  for (int c = 0; c < BPP; ++c) {
+    p.above[c] = qprev[x * BPP + c];
+    p.o[c] = static_cast<int>(__ldg(orig + x * BPP + c));
+  }
+  p.e0 = reinterpret_cast<const int4*>(e0)[x + 2];
+}
+
+// Histogram state of one warp: entries lane + 32j in registers, and the
+// rank keys of all 256 symbols in shared memory (rank_keys).
+struct Hist {
+  int h[kSlots];
+  const int* rk;
+};
+
 // One row of one image under filter f, run by one whole warp
-// (optimize_state_row, optimize_state.c:114-313).
+// (optimize_state_row, optimize_state.c:114-313). WIDE: bands may be wider
+// than the warp (s >= 32); else every band fits the warp (width <= s).
 //
 //   orig, oprev  this row's / the previous row's originals (W*BPP);
 //                oprev is read only when DERIV
 //   qprev        quantized previous row (W*BPP), zeros at row 0
 //   e0, e1       dither rows 0 and 1 at row start ((W+5)*4); row 2 is zero
-//   hist         shared memory: this filter's adaptive histogram, updated
-//   ofr          shared memory: this filter's original frequencies
+//   hs           this filter's adaptive histogram, updated, and rank keys
 //   qrow         out: quantized row (W*BPP)
 //   e0n, e1n     out: the next row's dither rows 0 and 1 ((W+5)*4)
+//   qcopy        out, when not null: a copy of qprev (W*BPP)
 //   wr           real width: pixels x >= wr count in no histogram,
 //                diffuse nothing and add no derivative error
 //
-// The dither rows are never read back while the row runs: pixel x's
-// diffusion lands on columns x..x+4 and is consumed within 4 pixels, so a
-// register window per dither lane holds the pending sums and each column
-// of e0n/e1n is written once, when it is final. Returns the row's
-// derivative error (optimize_state.c:265-289) when DERIV, else 0.
-template <int BPP, bool DERIV, typename OrigT>
-__device__ long long quantize_row_warp(
-    int f, int lane, int s, int bleed, int wr, int W, const OrigT* orig,
-    const OrigT* oprev, const int* qprev, const int* e0, const int* e1,
-    int* hist, const int* ofr, int* qrow, int* e0n, int* e1n) {
+// Inputs and outputs must not overlap, and the dither rows must be 16-byte
+// aligned. The pixel body has no branch: whatever the compiler cannot prove
+// warp-uniform would split it into blocks that issue one after another, so
+// selections, the transparent-pixel rule and the stores (every lane writes
+// the same value) are all selects and straight-line code, and each dither
+// lane's diffusion follows its channel's selection, where it overlaps the
+// next channel's. The dither rows are never read back while the row runs:
+// pixel x's diffusion lands on columns x..x+4 and is consumed within 4
+// pixels, so a register window per dither lane holds the pending sums and
+// each column of e0n/e1n is written once, when it is final. Returns the
+// row's derivative error (optimize_state.c:265-289) when DERIV, else 0.
+template <int BPP, bool DERIV, bool WIDE, typename OrigT>
+__device__ __forceinline__ long long quantize_row_warp(
+    int f, int lane, int s, Divisor band, Divisor bleed, int wr, int W,
+    const OrigT* __restrict__ orig, const OrigT* __restrict__ oprev,
+    const int* __restrict__ qprev, const int* __restrict__ e0,
+    const int* __restrict__ e1, Hist& hs, int* __restrict__ qrow,
+    int* __restrict__ e0n, int* __restrict__ e1n,
+    int* __restrict__ qcopy) {
   // pa/pb: pending adds to the current row's columns x+2 / x+3 (read back
   // by the carried-error fetch); n1..n4: next row, columns x..x+3;
   // m2/m3: row after next, columns x+1 / x+2
@@ -146,110 +304,188 @@ __device__ long long quantize_row_warp(
   for (int c = 0; c < BPP; ++c) left[c] = diag[c] = oleft[c] = odiag[c] = 0;
   long long err = 0;
 
+  Pixel<BPP> cur, nx1, nx2;
+  load_pixel(cur, 0, W, orig, qprev, e0);
+  load_pixel(nx1, 1, W, orig, qprev, e0);
+
+#pragma unroll 2
   for (int x = 0; x < W; ++x) {
-    const int cm = x < wr ? 1 : 0;
-    int above[BPP], o[BPP], back[BPP], here[BPP];
-#pragma unroll
-    for (int c = 0; c < BPP; ++c) {
-      above[c] = qprev[x * BPP + c];
-      o[c] = static_cast<int>(orig[x * BPP + c]);
-    }
-#pragma unroll
-    for (int c = 0; c < BPP; ++c) {
-      const int pred = predict(f, above[c], diag[c], left[c]);
-      const int k = dither_lane<BPP>(c);
-      int h = o[c] + e0[(x + 2) * 4 + k] + pa[k];
-      const Band bd = make_band(o[c], h, pred, s);
-      const int start = bd.mn & 0xFF;
-      const int ub = select_symbol(hist, ofr, start, bd.width, bd.u_orig,
-                                   lane);
-      int sym = (start + ub) & 0xFF;
-      int b = ub + bd.mn + bd.predw;
-      if (BPP % 2 == 0 && c == BPP - 1 && o[c] == 0) {
-        // fully transparent pixels stay fully transparent; the emitted
-        // symbol uses the UNwrapped predictor (optimize_state.c:158-164)
-        b = 0;
-        h = 0;
-        sym = (0 - pred) & 0xFF;
-      }
-      if (lane == 0 && cm) hist[sym] += 1;
-      __syncwarp();
-      back[c] = b;
-      here[c] = h;
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int c = 0; c < BPP; ++c) qrow[x * BPP + c] = back[c];
-    }
+    load_pixel(nx2, x + 2, W, orig, qprev, e0);
+    // read only after this pixel's selections: loaded here, in their shadow
+    const int4 seed = reinterpret_cast<const int4*>(e1)[x];
+    int op[BPP];
     if constexpr (DERIV) {
-      long long e = 0;
 #pragma unroll
-      for (int c = 0; c < BPP; ++c) {
-        const int op = static_cast<int>(oprev[x * BPP + c]);
-        const int da = (back[c] - above[c]) - (o[c] - op);
-        const int dd = (back[c] - diag[c]) - (o[c] - odiag[c]);
-        const int dl = (back[c] - left[c]) - (o[c] - oleft[c]);
-        e += static_cast<long long>(channel_weight<BPP>(c)) *
-             (static_cast<long long>(da) * da +
-              static_cast<long long>(dd) * dd +
-              static_cast<long long>(dl) * dl);
-        odiag[c] = op;
-      }
-      err += cm * e;
+      for (int c = 0; c < BPP; ++c)
+        op[c] = static_cast<int>(__ldg(oprev + x * BPP + c));
     }
-    // Sierra-lite diffusion (diffuse_color_error, optimize_state.c:390-490)
+    const int cm = x < wr ? 1 : 0;
+
+    // every channel's band and narrow read, from the histogram as it
+    // stands at the pixel's start
+    Band bd[BPP];
+    Narrow nr[BPP];
+    int pred[BPP], here[BPP];
+#pragma unroll
+    for (int c = 0; c < BPP; ++c) {
+      pred[c] = predict(f, cur.above[c], diag[c], left[c]);
+      here[c] = cur.o[c] + lane_of(cur.e0, dither_lane<BPP>(c)) +
+                pa[dither_lane<BPP>(c)];
+      bd[c] = make_band(cur.o[c], here[c], pred[c], s, band);
+      if constexpr (!WIDE) nr[c] = narrow(bd[c], lane, hs.h, hs.rk);
+    }
+
+    int back[BPP], sym[BPP], e0o[4], e1o[4];
+#pragma unroll
+    for (int c = 0; c < BPP; ++c) {
+      int ub;
+      if constexpr (WIDE) {
+        ub = select_wide(bd[c], lane, hs.h, hs.rk);
+      } else {
+        // the narrow read, patched with this pixel's earlier symbols
+        int fr = nr[c].fr;
+#pragma unroll
+        for (int p = 0; p < c; ++p) fr += cm & (nr[c].t == sym[p]);
+        ub = select_u(nr[c].in ? fr : -1, nr[c].key);
+      }
+      // fully transparent pixels stay fully transparent; the emitted
+      // symbol uses the UNwrapped predictor (optimize_state.c:158-164)
+      const bool clear = BPP % 2 == 0 && c == BPP - 1 && cur.o[c] == 0;
+      sym[c] = clear ? (0 - pred[c]) & 0xFF : (bd[c].mn + ub) & 0xFF;
+      back[c] = clear ? 0 : ub + bd[c].mn + bd[c].predw;
+      here[c] = clear ? 0 : here[c];
+      // the owning lane counts the symbol
+      const bool hit = cm && lane == (sym[c] & (kWarp - 1));
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) hs.h[j] += hit && j == (sym[c] >> 5);
+
+      // Sierra-lite diffusion of the dither lanes this channel feeds
+      // (diffuse_color_error, optimize_state.c:390-490), on magnitudes:
+      // truncating division and the remainder subtractions with positive
+      // weights commute with negation, so each part is the magnitude's
+      // part with the error's sign
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (lane_source<BPP>(k) != c) continue;
+        const int n = here[c] - back[c];
+        unsigned du = cm ? udiv(abs(n), bleed) : 0u;
+        const unsigned tw = du >> 4;
+        du -= tw << 2;
+        const unsigned th = du >> 3;
+        du -= th << 1;
+        const unsigned fo = (du << 1) / 9u;
+        du -= fo << 1;
+        const unsigned fi = du >> 1;
+        du -= fi;
+        const int sg = n < 0 ? -1 : 1;
+        const int twos = sg * static_cast<int>(tw);
+        const int threes = sg * static_cast<int>(th);
+        const int fours = sg * static_cast<int>(fo);
+        const int five = sg * static_cast<int>(fi);
+        e0o[k] = lane_of(seed, k) + n1[k] + twos;
+        e1o[k] = m2[k] + twos;
+        n1[k] = n2[k] + fours;
+        n2[k] = n3[k] + five;
+        n3[k] = n4[k] + fours;
+        n4[k] = twos;
+        m2[k] = m3[k] + threes;
+        m3[k] = twos;
+        pa[k] = pb[k] + sg * static_cast<int>(du);
+        pb[k] = threes;
+      }
+    }
+    // a dither lane no channel feeds stays zero: its window only shifts
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const int src = lane_source<BPP>(k);
-      int d = src < 0 ? 0 : (here[src] - back[src]) / bleed * cm;
-      const int twos = d / 16;
-      d -= twos * 4;
-      const int threes = d / 8;
-      d -= threes * 2;
-      const int fours = d * 2 / 9;
-      d -= fours * 2;
-      const int five = d / 2;
-      d -= five;
-      if (lane == 0) {
-        e0n[x * 4 + k] = e1[x * 4 + k] + n1[k] + twos;
-        e1n[(x + 1) * 4 + k] = m2[k] + twos;
+      if (lane_source<BPP>(k) >= 0) continue;
+      e0o[k] = lane_of(seed, k) + n1[k];
+      e1o[k] = m2[k];
+      n1[k] = n2[k];
+      n2[k] = n3[k];
+      n3[k] = n4[k];
+      n4[k] = 0;
+      m2[k] = m3[k];
+      m3[k] = 0;
+      pa[k] = pb[k];
+      pb[k] = 0;
+    }
+
+    // every lane stores the same values: no branch on the lane
+#pragma unroll
+    for (int c = 0; c < BPP; ++c) qrow[x * BPP + c] = back[c];
+    if (qcopy) {
+#pragma unroll
+      for (int c = 0; c < BPP; ++c) qcopy[x * BPP + c] = cur.above[c];
+    }
+    reinterpret_cast<int4*>(e0n)[x] = make_int4(e0o[0], e0o[1], e0o[2], e0o[3]);
+    reinterpret_cast<int4*>(e1n)[x + 1] =
+        make_int4(e1o[0], e1o[1], e1o[2], e1o[3]);
+    if constexpr (DERIV) {
+      int e = 0;
+#pragma unroll
+      for (int c = 0; c < BPP; ++c) {
+        const int da = (back[c] - cur.above[c]) - (cur.o[c] - op[c]);
+        const int dd = (back[c] - diag[c]) - (cur.o[c] - odiag[c]);
+        const int dl = (back[c] - left[c]) - (cur.o[c] - oleft[c]);
+        e += channel_weight<BPP>(c) * (da * da + dd * dd + dl * dl);
+        odiag[c] = op[c];
       }
-      n1[k] = n2[k] + fours;
-      n2[k] = n3[k] + five;
-      n3[k] = n4[k] + fours;
-      n4[k] = twos;
-      m2[k] = m3[k] + threes;
-      m3[k] = twos;
-      pa[k] = pb[k] + d;
-      pb[k] = threes;
+      err += cm * e;
     }
 #pragma unroll
     for (int c = 0; c < BPP; ++c) {
       left[c] = back[c];
-      diag[c] = above[c];
-      oleft[c] = o[c];
+      diag[c] = cur.above[c];
+      oleft[c] = cur.o[c];
     }
+    cur = nx1;
+    nx1 = nx2;
   }
   // flush the windows: e0n columns W..W+3 get their pendings over the
   // seed, column W+4 is the seed alone; e1n columns W+1 / W+2 are the
   // pendings, columns 0, W+3 and W+4 receive nothing
   if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      e0n[(W + 0) * 4 + k] = e1[(W + 0) * 4 + k] + n1[k];
-      e0n[(W + 1) * 4 + k] = e1[(W + 1) * 4 + k] + n2[k];
-      e0n[(W + 2) * 4 + k] = e1[(W + 2) * 4 + k] + n3[k];
-      e0n[(W + 3) * 4 + k] = e1[(W + 3) * 4 + k] + n4[k];
-      e0n[(W + 4) * 4 + k] = e1[(W + 4) * 4 + k];
-      e1n[0 * 4 + k] = 0;
-      e1n[(W + 1) * 4 + k] = m2[k];
-      e1n[(W + 2) * 4 + k] = m3[k];
-      e1n[(W + 3) * 4 + k] = 0;
-      e1n[(W + 4) * 4 + k] = 0;
-    }
+    const int4* e1v = reinterpret_cast<const int4*>(e1);
+    int4* e0nv = reinterpret_cast<int4*>(e0n);
+    int4* e1nv = reinterpret_cast<int4*>(e1n);
+    const int4 s0 = e1v[W], s1 = e1v[W + 1], s2 = e1v[W + 2];
+    const int4 s3 = e1v[W + 3], s4 = e1v[W + 4];
+    e0nv[W] = make_int4(s0.x + n1[0], s0.y + n1[1], s0.z + n1[2],
+                        s0.w + n1[3]);
+    e0nv[W + 1] = make_int4(s1.x + n2[0], s1.y + n2[1], s1.z + n2[2],
+                            s1.w + n2[3]);
+    e0nv[W + 2] = make_int4(s2.x + n3[0], s2.y + n3[1], s2.z + n3[2],
+                            s2.w + n3[3]);
+    e0nv[W + 3] = make_int4(s3.x + n4[0], s3.y + n4[1], s3.z + n4[2],
+                            s3.w + n4[3]);
+    e0nv[W + 4] = s4;
+    e1nv[0] = make_int4(0, 0, 0, 0);
+    e1nv[W + 1] = make_int4(m2[0], m2[1], m2[2], m2[3]);
+    e1nv[W + 2] = make_int4(m3[0], m3[1], m3[2], m3[3]);
+    e1nv[W + 3] = make_int4(0, 0, 0, 0);
+    e1nv[W + 4] = make_int4(0, 0, 0, 0);
   }
   __syncwarp();
   return err;
+}
+
+// quantize_row_warp with the selection the block's strength needs: every
+// band fits the warp when s < 32.
+template <int BPP, bool DERIV, typename OrigT>
+__device__ __forceinline__ long long quantize_row(
+    int f, int lane, int s, Divisor band, Divisor bleed, int wr, int W,
+    const OrigT* __restrict__ orig, const OrigT* __restrict__ oprev,
+    const int* __restrict__ qprev, const int* __restrict__ e0,
+    const int* __restrict__ e1, Hist& hs, int* __restrict__ qrow,
+    int* __restrict__ e0n, int* __restrict__ e1n,
+    int* __restrict__ qcopy) {
+  if (s < kWarp)
+    return quantize_row_warp<BPP, DERIV, false, OrigT>(
+        f, lane, s, band, bleed, wr, W, orig, oprev, qprev, e0, e1, hs,
+        qrow, e0n, e1n, qcopy);
+  return quantize_row_warp<BPP, DERIV, true, OrigT>(
+      f, lane, s, band, bleed, wr, W, orig, oprev, qprev, e0, e1, hs, qrow,
+      e0n, e1n, qcopy);
 }
 
 }  // namespace plk

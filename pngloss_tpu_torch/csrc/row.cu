@@ -5,19 +5,20 @@
 // with the +-256 wrap, the band by truncating division by s+1 with clamp
 // and exact-saturation fallback, the three-level symbol selection, the
 // transparent-pixel rule, the histogram update, and the Sierra split into
-// the next two dither rows. It carries row 0 of every image and all of an
-// image one row high.
+// the next two dither rows. It carries row 0 of every image and every row
+// of embedding mode's per-row fallback.
 //
 // Bound: the pixel chain is sequential per (image, filter), so the kernel
-// is bound by the latency of one pixel step (shared-memory band scan, three
-// warp reductions, the integer divisions of the Sierra split), not by
-// bytes or operations. Design: one block per image and one warp per
-// filter, so the 5 filters run side by side and the band scan of each
-// channel spreads over the 32 lanes; the histograms live in shared memory
-// and the dither window in registers (quantize.cuh). The TPU kernel's
-// reciprocal division, rotated band window, packed selection key and
-// stride-8 layout are TPU forms of the same function and are not needed:
-// this card divides integers exactly and indexes shared memory per thread.
+// is bound by the latency of one channel step (band, selection, histogram
+// update), W * bpp steps long, not by bytes or operations. Design: one
+// block per image and one warp per filter, so the 5 filters run side by
+// side; each warp runs quantize.cuh's branch-free chain with its
+// histogram in registers (8 entries per lane), a two-reduction selection
+// keyed by the rank of the original frequencies (ranked once per block
+// into shared memory), the row's inputs loaded two pixels ahead, and the
+// divisions by s+1 and bleed as invariant-divisor multiplies. The TPU
+// kernel's reciprocal division with corrections, rotated band window and
+// stride-8 layout are TPU forms of the same function and are not needed.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -27,36 +28,47 @@
 namespace {
 
 template <int BPP>
-__global__ void row_kernel(const int* s, int bleed, const int* w_real,
-                           const int* orig, const int* qprev, const int* e0,
-                           const int* e1, const int* hist, const int* ofreq,
-                           int* qrow, int* hist_out, int* e0n, int* e1n,
-                           int W) {
-  __shared__ int hs[plk::kFilters][256];
-  __shared__ int os[plk::kFilters][256];
+__global__ void __launch_bounds__(plk::kFilters * plk::kWarp)
+row_kernel(const int* __restrict__ s, int bleed,
+           const int* __restrict__ w_real, const int* __restrict__ orig,
+           const int* __restrict__ qprev, const int* __restrict__ e0,
+           const int* __restrict__ e1, const int* __restrict__ hist,
+           const int* __restrict__ ofreq, int* __restrict__ qrow,
+           int* __restrict__ hist_out, int* __restrict__ e0n,
+           int* __restrict__ e1n, int W) {
+  __shared__ int os[plk::kFilters][256];   // rank keys (rank_keys)
   const int b = blockIdx.x;
   const int f = threadIdx.x / plk::kWarp;
   const int lane = threadIdx.x % plk::kWarp;
-  for (int i = threadIdx.x; i < plk::kFilters * 256; i += blockDim.x) {
-    hs[i / 256][i % 256] = hist[b * 256 + i % 256];
+  for (int i = threadIdx.x; i < plk::kFilters * 256; i += blockDim.x)
     os[i / 256][i % 256] = ofreq[b * plk::kFilters * 256 + i];
-  }
   __syncthreads();
+  plk::rank_keys(os[f], lane);
+  plk::Hist hs;
+  hs.rk = os[f];
+#pragma unroll
+  for (int j = 0; j < plk::kSlots; ++j)
+    hs.h[j] = hist[b * 256 + lane + plk::kWarp * j];
   const long long wb = static_cast<long long>(W) * BPP;
   const long long we = static_cast<long long>(W + 5) * 4;
   const long long bf = static_cast<long long>(b) * plk::kFilters + f;
-  plk::quantize_row_warp<BPP, false, int>(
-      f, lane, s[b], bleed, w_real[b], W, orig + b * wb, nullptr,
-      qprev + b * wb, e0 + b * we, e1 + b * we, hs[f], os[f],
-      qrow + bf * wb, e0n + bf * we, e1n + bf * we);
-  for (int t = lane; t < 256; t += plk::kWarp) hist_out[bf * 256 + t] = hs[f][t];
+  const int sb = s[b];
+  plk::quantize_row<BPP, false, int>(
+      f, lane, sb, plk::make_divisor(sb + 1), plk::make_divisor(bleed),
+      w_real[b], W, orig + b * wb, nullptr, qprev + b * wb, e0 + b * we,
+      e1 + b * we, hs, qrow + bf * wb, e0n + bf * we, e1n + bf * we,
+      nullptr);
+#pragma unroll
+  for (int j = 0; j < plk::kSlots; ++j)
+    hist_out[bf * 256 + lane + plk::kWarp * j] = hs.h[j];
 }
 
 }  // namespace
 
-// s, w_real (B,); orig, qprev (B, W, bpp); e0, e1 (B, W+5, 4); hist
-// (B, 256); ofreq (B, 5, 256) -> qrow (B, 5, W, bpp), hist_out (B, 5, 256),
-// e0n, e1n (B, 5, W+5, 4); all int32.
+// s, w_real (B,); orig, qprev (B, W, bpp); e0, e1 (B, W+5, 4), 16-byte
+// aligned; hist (B, 256); ofreq (B, 5, 256) -> qrow (B, 5, W, bpp),
+// hist_out (B, 5, 256), e0n, e1n (B, 5, W+5, 4), 16-byte aligned; all
+// int32.
 extern "C" int plk_row_attempt(const void* s, int bleed, const void* w_real,
                                const void* orig, const void* qprev,
                                const void* e0, const void* e1,

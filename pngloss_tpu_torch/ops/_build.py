@@ -45,7 +45,7 @@ _SIGNATURES = {
     "plk_row_attempt": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _P, _I, _I, _I, _P),
     "plk_image_rows": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+                       _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -158,6 +158,13 @@ def require(t, name: str, dtype, shape) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def require_aligned(t, name: str, nbytes: int = 16) -> None:
+    """Raise unless ``t``'s data starts on an ``nbytes`` boundary (the
+    kernels read and write dither rows as 16-byte vectors)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: expected data aligned to {nbytes} bytes")
 
 
 def route(t) -> str:

@@ -39,8 +39,9 @@ ADAPTIVE_LAUNCHES = 0
 
 
 def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
-                   hist0, adaptive: bool = False):
-    """Plain version; arguments as for ``image_rows``.
+                   hist0, adaptive: bool = False, count=None):
+    """Plain version; arguments as for ``image_rows``; ``count`` as for
+    ``quantize_row``, over rows 1..H-1.
 
     The row step (the 5 candidates, and with ``adaptive`` their MSAD
     self-check) reads and writes fixed buffers. On a CUDA tensor it is
@@ -60,11 +61,14 @@ def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
 
         def row_step():
             q5, h5, e0n, e1n = quantize_row(s, bleed, orow, qprev, e0, e1,
-                                            hist, ofreq, w_real)
+                                            hist, ofreq, w_real, count)
             passing = msad_valid(q5, qprev, w_real) if adaptive else None
             return q5, h5, e0n, e1n, passing
 
+        counted = None if count is None else count.clone()
         step = _replayable(row_step, dev)
+        if count is not None:
+            count.copy_(counted)      # the graph's warm-up run counted too
         for y in range(1, h):
             orow.copy_(orig[:, y])
             q5, h5, e0n, e1n, passing = step()
@@ -132,16 +136,16 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
                            (e10, "e10", (b, w + 5, 4)),
                            (hist0, "hist0", (b, 256))):
         _build.require(t, name, i32, shape)
+    for t, name in ((e00, "e00"), (e10, "e10")):
+        _build.require_aligned(t, name)
     dev = rows.device
     qrows = torch.empty((b, h - 1, w, bpp), dtype=i32, device=dev)
     filt = torch.empty((b, h - 1), dtype=i32, device=dev)
-    # scratch: the 5 candidates' rows and next dither rows, and the
-    # winner's dither rows carried from row to row
-    cand = torch.empty((b, NUM_FILTERS, w, bpp), dtype=i32, device=dev)
-    e0n5 = torch.empty((b, NUM_FILTERS, w + 5, 4), dtype=i32, device=dev)
+    # scratch: two sets of the 5 candidates' rows and next dither rows;
+    # each row writes one set and reads the winner's from the other
+    cand = torch.empty((2, b, NUM_FILTERS, w, bpp), dtype=i32, device=dev)
+    e0n5 = torch.empty((2, b, NUM_FILTERS, w + 5, 4), dtype=i32, device=dev)
     e1n5 = torch.empty_like(e0n5)
-    e0w = torch.empty((b, w + 5, 4), dtype=i32, device=dev)
-    e1w = torch.empty_like(e0w)
     ok = torch.empty(b, dtype=i32, device=dev) if adaptive else None
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -150,8 +154,7 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
             rows.data_ptr(), qprev0.data_ptr(), e00.data_ptr(),
             e10.data_ptr(), hist0.data_ptr(), qrows.data_ptr(),
             filt.data_ptr(), None if ok is None else ok.data_ptr(),
-            cand.data_ptr(), e0n5.data_ptr(), e1n5.data_ptr(),
-            e0w.data_ptr(), e1w.data_ptr(), b, h, w, bpp,
+            cand.data_ptr(), e0n5.data_ptr(), e1n5.data_ptr(), b, h, w, bpp,
             _build.stream_ptr(rows)), "plk_image_rows")
     if adaptive:
         ADAPTIVE_LAUNCHES += 1

@@ -90,7 +90,8 @@ def residual_symbols(imgs: torch.Tensor) -> torch.Tensor:
     return (imgs[:, None] - pred) & 0xFF
 
 
-def quantize_row(s, bleed: int, orig, qprev, e0, e1, hist, ofreq, w_real):
+def quantize_row(s, bleed: int, orig, qprev, e0, e1, hist, ofreq, w_real,
+                 count=None):
     """One strength attempt on one row of B images under all 5 filters
     (optimize_state_row's pixel loop, optimize_state.c:114-313).
 
@@ -98,7 +99,10 @@ def quantize_row(s, bleed: int, orig, qprev, e0, e1, hist, ofreq, w_real):
     row and quantized previous row (zeros at row 0); e0, e1 (B, W+5, 4)
     dither rows 0 and 1 at row start (row 2 starts zero); hist (B, 256)
     adaptive histogram; ofreq (B, 5, 256) original-residual histograms;
-    w_real (B,) real widths.
+    w_real (B,) real widths. ``count``, when given, is a 0-d int64 tensor
+    to which the band candidates scanned at real, non-transparent channel
+    steps are added: the data-dependent part of the work (chip_smoke.py's
+    operation count).
 
     Returns qrow (B, 5, W, bpp), hist (B, 5, 256), and the next row's
     dither rows e0n, e1n (B, 5, W+5, 4): the buffer shift of
@@ -164,6 +168,7 @@ def quantize_row(s, bleed: int, orig, qprev, e0, e1, hist, ofreq, w_real):
             sym = (start + u_best) & 0xFF
             back = u_best + mn + predw
 
+            scanned = (width + 1) * cm
             if bpp % 2 == 0 and c == bpp - 1:
                 # fully transparent pixels stay fully transparent; the
                 # emitted symbol uses the UNwrapped predictor (:158-164)
@@ -171,6 +176,9 @@ def quantize_row(s, bleed: int, orig, qprev, e0, e1, hist, ofreq, w_real):
                 back = torch.where(transp, 0, back)
                 here = torch.where(transp, 0, here)
                 sym = torch.where(transp, (0 - pred) & 0xFF, sym)
+                scanned = torch.where(transp, 0, scanned)
+            if count is not None:
+                count += scanned.sum()
 
             hist.scatter_add_(2, sym[..., None].long(),
                               cm.expand(b, NUM_FILTERS)[..., None])

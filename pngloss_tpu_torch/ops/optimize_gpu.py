@@ -17,10 +17,10 @@ same-shaped (possibly padded) working-format planes:
      (``optimize_rows``: every row through step 2's loop, the row kernel
      with carried state), and their results replace the speculation's.
 
-An image one row high runs step 2 alone. The TPU kernels' packed
-selection key and rank tables are not needed: the selection compares
-(frequency, original frequency) as two int32 levels, exact at every image
-size. Large batches are cut into chunks sized by free device memory.
+An image one row high runs step 2 alone. The kernels compare the adaptive
+frequency alone in 32 bits and then a key built from the rank of the
+original frequency (csrc/quantize.cuh), exact at every image size. Large
+batches are cut into chunks sized by free device memory.
 """
 
 from __future__ import annotations
@@ -49,11 +49,11 @@ def bytes_per_image(h: int, w: int, bpp: int) -> int:
     """Device bytes one image of a CUDA batch holds at once: the uint8
     plane, the int32 winner rows, the uint8 output, the per-row path's
     int32 originals and rows (embedding mode's fallback), and the 5
-    candidates' rows and dither rows (row attempt outputs and image-kernel
-    scratch)."""
+    candidates' rows and dither rows (a row attempt's outputs, and the
+    image kernel's two sets of scratch)."""
     wb = w * bpp
     return (h * wb * (1 + 4 + 1 + 4 + 4)
-            + 4 * 5 * 2 * (wb + 2 * 4 * (w + 5)) + 8192)
+            + 4 * 5 * 3 * (wb + 2 * 4 * (w + 5)) + 8192)
 
 
 def max_batch(h: int, w: int, bpp: int, device) -> int:

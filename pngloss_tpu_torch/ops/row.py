@@ -37,6 +37,8 @@ def row_attempt(s, bleed: int, orig, qprev, e0, e1, hist, ofreq, w_real):
                            (ofreq, "ofreq", (b, NUM_FILTERS, 256)),
                            (w_real, "w_real", (b,))):
         _build.require(t, name, i32, shape)
+    for t, name in ((e0, "e0"), (e1, "e1")):
+        _build.require_aligned(t, name)
     if not 1 <= bpp <= 4 or bleed < 1:
         raise ValueError(f"bad bpp {bpp} or bleed {bleed}")
     dev = orig.device

@@ -57,13 +57,12 @@ def data_mesh(devices=None) -> tuple[torch.device, ...]:
     return mesh
 
 
-def resolve_mesh(device=None, mesh=None) -> tuple[torch.device, ...]:
+def resolve_mesh(device="cuda", mesh=None) -> tuple[torch.device, ...]:
     """The devices a call runs on: ``mesh`` when given, else ``device``
-    alone. Passing neither raises."""
+    alone; by default the current CUDA device. Without CUDA that raises
+    ``CudaUnavailableError``: nothing runs on the CPU unless asked."""
     if mesh is not None:
         return data_mesh(mesh)
-    if device is None:
-        raise ValueError("give a device or a mesh")
     return data_mesh((device,))
 
 

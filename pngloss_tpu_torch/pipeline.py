@@ -4,7 +4,8 @@ Counterpart of ``pngloss_tpu/pipeline.py``: CLI mode (row filters
 recorded) and the embedding API (``optimize_for_average_filter``,
 ``optimize_with_stride``: every row passes libpng's MSAD self-check).
 Images are bucketed by padded working shape (H, W, bpp) on the
-pad ladder, each bucket is optimized in one call on ``device``, or split
+pad ladder, each bucket is optimized in one call on ``device`` (default
+``"cuda"``; nothing runs on the CPU unless ``device="cpu"``), or split
 over the devices of ``mesh`` (``parallel.data_mesh``), with the real sizes
 as per-image masks, and host DEFLATE drains finished buckets on a thread
 pool. On CUDA each shard's results are copied into pinned host memory
@@ -12,8 +13,8 @@ without blocking, so later buckets are dispatched while earlier copies
 land. Each shard chunks itself by its own device's free memory. Output
 bytes equal ``pngloss_tpu.pipeline``'s.
 
-The host helpers below are copies of ``pngloss_tpu.pipeline``'s: that
-module imports JAX at its top, so the port cannot import them from there.
+The host helpers below are copies of ``pngloss_tpu.pipeline``'s: the port
+imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import os
 import numpy as np
 import torch
 
-from pngloss_tpu import codec, tracing
+from pngloss_tpu_torch import codec, tracing
 from pngloss_tpu_torch.parallel import optimize_batch_sharded, resolve_mesh
 
 
@@ -100,7 +101,7 @@ def _warn_abort_fallbacks(qs, fs, bpp: int) -> None:
     mode) so any real-world occurrence is visible."""
     import warnings
 
-    from pngloss_tpu.core.reference import adaptive_filter_for_row
+    from pngloss_tpu_torch.reference import adaptive_filter_for_row
 
     hit = sum(1 for q, f in zip(qs, fs)
               if adaptive_filter_for_row(
@@ -150,7 +151,7 @@ def _gather_to_host(qs, fs):
 
 
 def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
-                     use_row_filters: bool = True, device=None,
+                     use_row_filters: bool = True, device="cuda",
                      mesh=None) -> list[_PendingBucket]:
     """Bucket working-format planes and optimize each bucket on ``device``,
     or split over the devices of ``mesh`` (which, when given, replaces
@@ -206,7 +207,7 @@ def collect_bucket(p: _PendingBucket):
 
 
 def optimize_rgba_batch(rgbas, strength=19, bleed: int = 2, *,
-                        use_row_filters: bool = True, device=None,
+                        use_row_filters: bool = True, device="cuda",
                         mesh=None):
     """Optimize a list of RGBA images on ``device`` or over ``mesh``,
     bucketing by working shape. strength: one int for all images, or a
@@ -234,7 +235,7 @@ def optimize_rgba_batch(rgbas, strength=19, bleed: int = 2, *,
 
 
 def optimize_rgba(rgba: np.ndarray, strength: int = 19, bleed: int = 2,
-                  use_row_filters: bool = True, *, device=None,
+                  use_row_filters: bool = True, *, device="cuda",
                   mesh=None) -> tuple[np.ndarray, np.ndarray]:
     """Optimize one RGBA image on ``device`` or ``mesh``; the single-image
     counterpart of the reference's optimize_with_rows (pngloss_image.c:52).
@@ -285,7 +286,7 @@ def unique_symbol_count(q_rgba: np.ndarray, row_filters: np.ndarray,
 
 
 def optimize_for_average_filter(rgba: np.ndarray, strength: int = 19, *,
-                                device) -> np.ndarray:
+                                device="cuda") -> np.ndarray:
     """The embedding API (optimizeForAverageFilter, pngloss_image.c:29):
     fixed bleed=2, no row-filter output, every row must self-consistently
     pass libpng's adaptive heuristic. Returns the quantized RGBA array."""
@@ -296,7 +297,7 @@ def optimize_for_average_filter(rgba: np.ndarray, strength: int = 19, *,
 
 def optimize_with_stride(buffer: np.ndarray, width: int, height: int,
                          stride: int, strength: int = 19, bleed: int = 2,
-                         use_row_filters: bool = True, *, device):
+                         use_row_filters: bool = True, *, device="cuda"):
     """Stride-buffer embedding entry (optimize_with_stride,
     pngloss_image.c:40-50): ``buffer`` is a flat uint8 array holding RGBA
     rows ``stride`` bytes apart; pixels are modified IN PLACE, and the
@@ -333,7 +334,7 @@ class CompressResult:
 
 def compress_bytes(data: bytes, strength: int = 19, bleed: int = 2, *,
                    strip: bool = False, skip_if_larger: bool = False,
-                   device=None, mesh=None) -> bytes:
+                   device="cuda", mesh=None) -> bytes:
     """Compress one PNG file's bytes (pngloss_file_internal, pngloss.c:226).
     Raises codec.TooLargeFile when skip_if_larger is set and the output
     would not be smaller than the input."""
@@ -344,10 +345,10 @@ def compress_bytes(data: bytes, strength: int = 19, bleed: int = 2, *,
 
 def compress_many(files, strength=19, bleed: int = 2, *,
                   strip: bool = False, skip_if_larger: bool = False,
-                  device=None, mesh=None) -> list[CompressResult]:
-    """Compress many PNG byte strings on ``device`` ("cpu" runs the plain
-    PyTorch versions of the kernels, "cuda" the kernels; "cuda" without
-    CUDA raises), or split over the devices of ``mesh``
+                  device="cuda", mesh=None) -> list[CompressResult]:
+    """Compress many PNG byte strings on ``device`` (default "cuda": the
+    kernels; "cpu" runs their plain PyTorch versions; "cuda" without CUDA
+    raises ``CudaUnavailableError``), or split over the devices of ``mesh``
     (``parallel.data_mesh``), which, when given, replaces ``device``.
 
     decode pool -> colorspace reduce -> optimize each shape bucket

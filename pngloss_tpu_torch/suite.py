@@ -26,8 +26,8 @@ import subprocess
 import sys
 import time
 
-from pngloss_tpu import codec
-from pngloss_tpu.metrics import psnr_rgba
+from pngloss_tpu_torch import codec
+from pngloss_tpu_torch.metrics import psnr_rgba
 
 
 def run_oracle(oracle: str, data: bytes, strength: int, bleed: int = 2) -> bytes:

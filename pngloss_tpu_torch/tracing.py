@@ -2,9 +2,11 @@
 
 Counterpart of ``pngloss_tpu/tracing.py``:
 
-  * ``stage(name)`` and ``snapshot()`` are ``pngloss_tpu.tracing``'s own
-    (that module imports no JAX), so the port's pipeline and the JAX
-    package write into one set of per-stage accumulators;
+  * ``stage(name)`` accumulates wall time per stage into a process-wide
+    trace (lock-protected: the pipeline's decode and encode pools run
+    stages on worker threads), read back with ``snapshot()``. Both are the
+    port's own copies of ``pngloss_tpu.tracing``'s, with their own
+    accumulators: the port imports nothing of the JAX package;
   * ``device_trace(path)`` records a ``torch.profiler`` trace (CPU
     activity, and CUDA activity where CUDA is available) when a dump
     directory is given or ``PNGLOSS_PROFILE_DIR`` is set, and writes it
@@ -17,9 +19,39 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
+from collections import defaultdict
 
-from pngloss_tpu.tracing import snapshot, stage
+_lock = threading.Lock()
+_times: dict[str, float] = defaultdict(float)
+_counts: dict[str, int] = defaultdict(int)
+
+
+@contextlib.contextmanager
+def stage(name: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        with _lock:
+            _times[name] += dt
+            _counts[name] += 1
+
+
+def snapshot(reset: bool = False) -> dict[str, dict[str, float]]:
+    """Per-stage {'seconds', 'calls'} accumulated across all threads.
+    Stage seconds are summed per thread, so pooled stages (host_encode on N
+    workers) can total more than wall time — that is the intended reading:
+    total CPU-seconds spent in the stage."""
+    with _lock:
+        out = {k: {"seconds": round(v, 6), "calls": _counts[k]}
+               for k, v in _times.items()}
+        if reset:
+            _times.clear()
+            _counts.clear()
+    return out
 
 
 @contextlib.contextmanager

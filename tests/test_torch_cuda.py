@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from pngloss_tpu_torch.ops import hist, image, optimize_batch_auto, row
+from pngloss_tpu_torch.ops.edges import EDGES, edge_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -268,3 +269,31 @@ def test_kernels_launch_on_their_tensors_device(cuda):
         for mesh in ((other,), (cuda, other)):
             got = pipeline.compress_many(pngs, 19, mesh=mesh)
             assert [r.unwrap() for r in got] == want
+
+
+@pytest.mark.parametrize("name", sorted(EDGES))
+def test_kernels_at_the_designs_edges(cuda, name):
+    """Each kernel on the card against its plain version on the CPU."""
+    (row_args, image_args) = edge_inputs(name, cuda)
+    (row_cpu, image_cpu) = edge_inputs(name, "cpu")
+    _assert_same(row.row_attempt(*row_args), row.row_attempt_ref(*row_cpu))
+    for adaptive in (False, True):
+        _assert_same(image.image_rows(*image_args, adaptive=adaptive),
+                     image.image_rows_ref(*image_cpu, adaptive=adaptive))
+
+
+def test_plain_versions_count_candidates_alike_on_the_card(cuda):
+    """The plain versions' band-candidate count (chip_smoke.py's operation
+    bound) on the card, where the image version replays a CUDA graph after
+    a warm-up run, equals the count of their eager run on the CPU."""
+    name = "equal-channels-bpp4"
+    (row_args, image_args), (row_cpu, image_cpu) = (
+        edge_inputs(name, cuda), edge_inputs(name, "cpu"))
+    for fn, on_card, on_cpu in ((row.row_attempt_ref, row_args, row_cpu),
+                                (image.image_rows_ref, image_args,
+                                 image_cpu)):
+        n_card = torch.zeros((), dtype=torch.int64, device=cuda)
+        n_cpu = torch.zeros((), dtype=torch.int64)
+        fn(*on_card, count=n_card)
+        fn(*on_cpu, count=n_cpu)
+        assert int(n_card) == int(n_cpu) > 0

@@ -110,3 +110,35 @@ def test_image_stage_seeded_from_jax_carry():
     np.testing.assert_array_equal(
         qrows.numpy().reshape(b, h - 1, w * bpp), np.asarray(qj)[:, 1:])
     np.testing.assert_array_equal(filt.numpy(), np.asarray(fj)[:, 1:])
+
+
+@pytest.mark.parametrize("bpp", [2, 3])
+def test_plain_image_counts_candidates_of_every_row(bpp):
+    """image_rows_ref's band-candidate count is the sum of quantize_row's
+    counts along the winners' states, row by row. Bleed 32767 and zero
+    dither keep every dither row zero, so each row's state is its
+    predecessor's output row and the winner's histogram."""
+    from pngloss_tpu_torch.ops.optimize import pick, quantize_row
+
+    rng = np.random.default_rng(350 + bpp)
+    b, h, w = 3, 4, 6
+    rows = torch.from_numpy(_ragged_batch(rng, bpp, [(h, w)] * b, h, w))
+    s = torch.tensor([0, 19, 255], dtype=torch.int32)
+    w_real = torch.tensor([6, 4, 6], dtype=torch.int32)
+    ofreq = hist.original_frequencies(rows, bpp)
+    orig = rows.view(b, h, w, bpp).to(torch.int32)
+    qprev = torch.from_numpy(rng.integers(0, 256, (b, w, bpp), dtype=np.int32))
+    ze = torch.zeros((b, w + 5, 4), dtype=torch.int32)
+    hist0 = torch.from_numpy(rng.integers(0, 3, (b, 256), dtype=np.int32))
+    count = torch.zeros((), dtype=torch.int64)
+    qrows, filt = image.image_rows_ref(s, 32767, w_real, ofreq, rows, qprev,
+                                       ze, ze, hist0, count=count)
+    want = torch.zeros((), dtype=torch.int64)
+    hs = hist0
+    for y in range(1, h):
+        _, h5, e0n, e1n = quantize_row(s, 32767, orig[:, y], qprev, ze, ze, hs,
+                                       ofreq, w_real, count=want)
+        assert not e0n.any() and not e1n.any()
+        hs = pick(h5, filt[:, y - 1])
+        qprev = qrows[:, y - 1]
+    assert int(count) == int(want) > 0

@@ -88,7 +88,7 @@ def test_mesh_without_cuda_raises(monkeypatch):
         data_mesh(("cuda:0", "cuda:0"))
     with pytest.raises(CudaUnavailableError, match="CUDA is not available"):
         pipeline.compress_many([b""], 19, mesh=("cuda",))
-    with pytest.raises(ValueError, match="device or a mesh"):
+    with pytest.raises(CudaUnavailableError, match="CUDA is not available"):
         resolve_mesh()
     with pytest.raises(ValueError, match="no devices"):
         data_mesh(())

@@ -104,3 +104,65 @@ def test_one_row_images(bpp):
         qr, fr = ref.optimize_image(rows[i], bpp, int(s), 2, True)
         np.testing.assert_array_equal(q[i].numpy(), qr)
         np.testing.assert_array_equal(f[i].numpy(), fr)
+
+
+def _band_candidates(o, here, pred, s):
+    """How many symbols the scalar model's band loop scans for one channel
+    (core/reference.py ``_run_pixel``: wrap, band, clamp, fallback)."""
+    osym = o - pred
+    if osym < -128:
+        pred -= 256
+    elif osym > 127:
+        pred += 256
+    filtered = here - pred
+    band = s + 1
+    if filtered < 0:
+        mx = -(-filtered - (-filtered % band))
+        mn = mx - s
+    else:
+        mn = filtered - filtered % band
+        mx = mn + s
+    if mn + pred < 0:
+        mn = -pred
+    if mx + pred > 255:
+        mx = 255 - pred
+    if mx < mn:
+        if filtered + pred > 255:
+            mn = mx = 255 - pred
+        if filtered + pred < 0:
+            mn = mx = -pred
+    return mx - mn + 1
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_candidate_count_matches_scalar_band(bpp):
+    """The plain version's count of scanned band candidates against the
+    scalar model's band. With bleed 32767 and no carried error nothing is
+    dithered (|here - back| < 256 divides to 0), so each channel's band
+    follows from its original and its predictor over the plain version's
+    own output; padded columns and transparent alpha scan nothing."""
+    rng = np.random.default_rng(220 + bpp)
+    x = _inputs(rng, bpp)
+    x["e0"][:] = 0
+    x["e1"][:] = 0
+    s = np.asarray([0, 3, 19, 255], np.int32)
+    w_real = np.asarray([7, 5, 7, 2], np.int32)
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    count = torch.zeros((), dtype=torch.int64)
+    qrow = row_attempt_ref(torch.from_numpy(s), 32767, t["orig"], t["qprev"],
+                           t["e0"], t["e1"], t["hist"], t["ofreq"],
+                           torch.from_numpy(w_real), count=count)[0].numpy()
+    want = 0
+    for b in range(len(s)):
+        for f in range(5):
+            for px in range(w_real[b]):
+                for c in range(bpp):
+                    o = int(x["orig"][b, px, c])
+                    if bpp % 2 == 0 and c == bpp - 1 and o == 0:
+                        continue
+                    above = int(x["qprev"][b, px, c])
+                    diag = int(x["qprev"][b, px - 1, c]) if px else 0
+                    left = int(qrow[b, f, px - 1, c]) if px else 0
+                    pred = ref.filter_predict(above, diag, left, f)
+                    want += _band_candidates(o, o, pred, int(s[b]))
+    assert int(count) == want

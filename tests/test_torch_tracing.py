@@ -1,5 +1,6 @@
-"""The port's tracing: the stage accumulators are ``pngloss_tpu.tracing``'s,
-and ``device_trace`` writes a torch.profiler trace only when asked."""
+"""The port's tracing: the pipeline records into the port's own stage
+accumulators (a copy of ``pngloss_tpu.tracing``'s, apart from it), and
+``device_trace`` writes a torch.profiler trace only when asked."""
 
 import json
 import os
@@ -18,11 +19,15 @@ def _png():
 
 
 def test_stages_are_shared_and_recorded():
-    assert tracing.stage is jax_tracing.stage
-    assert tracing.snapshot is jax_tracing.snapshot
+    """The pipeline and ``tracing`` share one set of accumulators, the
+    port's own: the JAX package's sees nothing of a port run."""
+    assert tracing.stage is not jax_tracing.stage
+    assert pipeline.tracing is tracing
     tracing.snapshot(reset=True)
+    jax_tracing.snapshot(reset=True)
     pipeline.compress_many([_png(), b"not a png"], 19, device="cpu")
-    snap = jax_tracing.snapshot(reset=True)
+    assert jax_tracing.snapshot(reset=True) == {}
+    snap = tracing.snapshot(reset=True)
     assert snap["host_decode"]["calls"] == 2
     assert snap["host_encode"]["calls"] == 1
     assert snap["device_dispatch_8x8x4"]["calls"] == 1
