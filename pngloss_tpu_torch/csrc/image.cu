@@ -1,8 +1,9 @@
-// Rows 1..H-1 of every image in one launch, in CLI mode and in embedding
-// mode's speculation.
+// Rows 1..H-1 of every image in one launch, in CLI mode, in embedding
+// mode's speculation and in embedding mode's per-row path.
 //
 // Replaces the TPU kernel pngloss_tpu/ops/pallas_image.py:_image_kernel
-// (launched by image_rows_pallas), both variants:
+// (launched by image_rows_pallas), both variants, and the device program
+// the JAX package runs around its row kernel in embedding mode:
 //   adaptive=False (CLI mode): only row 0 runs the MSAD self-check, so
 //     rows >= 1 never fall back to a lower strength;
 //   adaptive=True (embedding mode): every row runs libpng's MSAD
@@ -10,7 +11,25 @@
 //     (UINTMAX_MAX in the C code), and a per-image ok flag is cleared by
 //     any row where no filter passes. Such a row carries on with filter 0,
 //     as the TPU kernel does; the caller re-runs its image through the
-//     per-row fallback.
+//     per-row fallback;
+//   RETRY (embedding mode's per-row path, the scan over rows with a
+//     while_loop over the strength of
+//     pngloss_tpu/ops/optimize_pallas.py:optimize_batch_pallas_t): every
+//     row starts at the image's full strength; while no filter passes the
+//     self-check and the row's strength is above 0, the block lowers it by
+//     one and runs the row again; at strength 0 with no passing filter the
+//     minimum true cost wins (where the C tool would abort). This variant
+//     never fails; it reports the row attempts each image took. The
+//     strength-0 branch has never run on the device: at strength 0 the 5
+//     candidates are one row, whose MSAD choice is one of them, so no input
+//     reaches it, and only the plain version's test (with a stubbed
+//     self-check) holds its rule. A retry
+//     writes the same scratch set again (the previous row's winner lives in
+//     the other), reloads the histogram at row start, which stays in shared
+//     memory until a winner posts, and loops around the one call of the
+//     pixel chain: a second call site would be a second copy of the chain,
+//     and five copies ran 1.7x slower (instruction cache). Each image
+//     retries alone, with no host round trip.
 // Per row: each filter's candidate (the per-pixel math of the row kernel,
 // quantize.cuh), its cost sum_t (hist_out - hist_in)[t] *
 // (33 + clz(hist_out[t])) plus the derivative error / 128 (accumulated
@@ -79,7 +98,7 @@ __device__ bool msad_passes(int f, int lane, int wr,
   return best == f;
 }
 
-template <int BPP, bool ADAPTIVE>
+template <int BPP, bool ADAPTIVE, bool RETRY>
 __global__ void __launch_bounds__(plk::kFilters * plk::kWarp)
 image_kernel(const int* __restrict__ s, int bleed,
              const int* __restrict__ w_real, const int* __restrict__ ofreq,
@@ -87,8 +106,9 @@ image_kernel(const int* __restrict__ s, int bleed,
              const int* __restrict__ qprev0, const int* __restrict__ e00,
              const int* __restrict__ e10, const int* __restrict__ hist0,
              int* __restrict__ qrows, int* __restrict__ filt,
-             int* __restrict__ ok, int* cand, int* e0n5, int* e1n5, int B,
-             int H, int W) {
+             int* __restrict__ ok, int* __restrict__ attempts, int* cand,
+             int* e0n5, int* e1n5, int B, int H, int W) {
+  static_assert(ADAPTIVE || !RETRY, "only the adaptive check can fail");
   __shared__ int os[plk::kFilters][256];      // rank keys (rank_keys)
   __shared__ int hw[256];                     // histogram at row start
   __shared__ long long cost[plk::kFilters];
@@ -110,6 +130,7 @@ image_kernel(const int* __restrict__ s, int bleed,
     return (static_cast<long long>(p) * B + b) * plk::kFilters + k;
   };
   int all_rows_pass = 1;                      // read by thread 0 only
+  int tries = 0;                              // read by thread 0 only
 
   for (int i = tid; i < plk::kFilters * 256; i += blockDim.x)
     os[i / 256][i % 256] = ofreq[b * plk::kFilters * 256 + i];
@@ -128,35 +149,73 @@ image_kernel(const int* __restrict__ s, int bleed,
   for (int y = 1, p = 0; y < H; ++y, p ^= 1) {
     const long long mine = set(p, f);
     int* qrow = cand + mine * wb;
-    const long long err = plk::quantize_row<BPP, true, uint8_t>(
-        f, lane, sb, band, bl, wr, W, img + y * wb, img + (y - 1) * wb,
-        qprev, e0, e1, hs, qrow, e0n5 + mine * we, e1n5 + mine * we,
-        y >= 2 ? my_q + (y - 2) * wb : nullptr);
-    long long bits = 0;
-#pragma unroll
-    for (int j = 0; j < plk::kSlots; ++j) {
-      const int fr = hs.h[j];
-      if (fr > 0)
-        bits += static_cast<long long>(fr - hw[lane + plk::kWarp * j]) *
-                (33 + __clz(fr));
-    }
-    for (int off = plk::kWarp / 2; off > 0; off /= 2)
-      bits += __shfl_xor_sync(plk::kFull, bits, off);
-    bool pass = true;
-    if constexpr (ADAPTIVE) {
-      // every lane stored the same values of the candidate row, and
-      // quantize_row_warp ends in __syncwarp, so the whole warp sees them
-      pass = msad_passes<BPP>(f, lane, wr, qrow, qprev);
-    }
-    if (lane == 0) {
-      cost[f] = pass ? bits + err / 128 : LLONG_MAX;
-      passing[f] = pass;
-    }
-    __syncthreads();
+    int sr = sb;                              // RETRY: this row's strength
+    plk::Divisor bandr = band;
     int best = 0;
+    bool again;
+    do {
+      again = false;
+      const long long err = plk::quantize_row<BPP, true, uint8_t>(
+          f, lane, sr, bandr, bl, wr, W, img + y * wb, img + (y - 1) * wb,
+          qprev, e0, e1, hs, qrow, e0n5 + mine * we, e1n5 + mine * we,
+          y >= 2 ? my_q + (y - 2) * wb : nullptr);
+      long long bits = 0;
 #pragma unroll
-    for (int k = 1; k < plk::kFilters; ++k)
-      if (cost[k] < cost[best]) best = k;
+      for (int j = 0; j < plk::kSlots; ++j) {
+        const int fr = hs.h[j];
+        if (fr > 0)
+          bits += static_cast<long long>(fr - hw[lane + plk::kWarp * j]) *
+                  (33 + __clz(fr));
+      }
+      for (int off = plk::kWarp / 2; off > 0; off /= 2)
+        bits += __shfl_xor_sync(plk::kFull, bits, off);
+      bool pass = true;
+      if constexpr (ADAPTIVE) {
+        // every lane stored the same values of the candidate row, and
+        // quantize_row_warp ends in __syncwarp, so the whole warp sees them
+        pass = msad_passes<BPP>(f, lane, wr, qrow, qprev);
+      }
+      if (lane == 0) {
+        // RETRY keeps the true cost: the row may be accepted with no
+        // passing filter
+        cost[f] = (RETRY || pass) ? bits + err / 128 : LLONG_MAX;
+        passing[f] = pass;
+      }
+      __syncthreads();
+      if constexpr (RETRY) {
+        bool any = false;
+#pragma unroll
+        for (int k = 0; k < plk::kFilters; ++k) any = any || passing[k];
+        if (tid == 0) ++tries;
+        if (!any && sr > 0) {
+          // block-uniform: every thread read the same passing[]. The row
+          // runs again one strength lower, from the histogram at row start
+          --sr;
+          bandr = plk::make_divisor(sr + 1);
+#pragma unroll
+          for (int j = 0; j < plk::kSlots; ++j)
+            hs.h[j] = hw[lane + plk::kWarp * j];
+          again = true;
+          // cost[] and passing[] are rewritten only after all have read them
+          __syncthreads();
+        } else {
+          long long least = 0;
+#pragma unroll
+          for (int k = 0; k < plk::kFilters; ++k) {
+            const long long ck =
+                (any && !passing[k]) ? LLONG_MAX : cost[k];
+            if (k == 0 || ck < least) {
+              best = k;
+              least = ck;
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 1; k < plk::kFilters; ++k)
+          if (cost[k] < cost[best]) best = k;
+      }
+    } while (RETRY && again);
     if (f == best) {
 #pragma unroll
       for (int j = 0; j < plk::kSlots; ++j)
@@ -164,7 +223,7 @@ image_kernel(const int* __restrict__ s, int bleed,
     }
     if (tid == 0) {
       filt[static_cast<long long>(b) * (H - 1) + y - 1] = best;
-      if constexpr (ADAPTIVE) {
+      if constexpr (ADAPTIVE && !RETRY) {
         bool any = false;
         for (int k = 0; k < plk::kFilters; ++k) any = any || passing[k];
         if (!any) all_rows_pass = 0;
@@ -181,7 +240,8 @@ image_kernel(const int* __restrict__ s, int bleed,
   // the last row's winner, which no later row copies
   for (long long i = tid; i < wb; i += blockDim.x)
     my_q[(H - 2) * wb + i] = qprev[i];
-  if (ADAPTIVE && tid == 0) ok[b] = all_rows_pass;
+  if (ADAPTIVE && !RETRY && tid == 0) ok[b] = all_rows_pass;
+  if (RETRY && tid == 0) attempts[b] = tries;
 }
 
 }  // namespace
@@ -190,17 +250,21 @@ image_kernel(const int* __restrict__ s, int bleed,
 // winner state qprev0 (B, W, bpp), e00, e10 (B, W+5, 4), 16-byte aligned,
 // hist0 (B, 256) -> qrows (B, H-1, W, bpp), filt (B, H-1); ok (B,) selects
 // embedding mode's MSAD self-check on every row when not null (1 = every
-// row had a passing filter); scratch: two sets of the 5 candidates' rows
+// row had a passing filter); attempts (B,) selects, when not null (ok is
+// null then), the self-check with the strength loop per row, and gets the
+// row attempts each image took; scratch: two sets of the 5 candidates' rows
 // cand (2, B, 5, W, bpp) and next dither rows e0n5, e1n5 (2, B, 5, W+5, 4),
 // 16-byte aligned; all int32 but rows.
 extern "C" int plk_image_rows(const void* s, int bleed, const void* w_real,
                               const void* ofreq, const void* rows,
                               const void* qprev0, const void* e00,
                               const void* e10, const void* hist0,
-                              void* qrows, void* filt, void* ok, void* cand,
-                              void* e0n5, void* e1n5, int B, int H, int W,
-                              int bpp, void* stream) {
+                              void* qrows, void* filt, void* ok,
+                              void* attempts, void* cand, void* e0n5,
+                              void* e1n5, int B, int H, int W, int bpp,
+                              void* stream) {
   if (B <= 0 || H < 2) return static_cast<int>(cudaGetLastError());
+  if (ok && attempts) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(B), block(plk::kFilters * plk::kWarp);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PLK_IMAGE_ARGS                                                    \
@@ -209,13 +273,16 @@ extern "C" int plk_image_rows(const void* s, int bleed, const void* w_real,
       static_cast<const int*>(qprev0), static_cast<const int*>(e00),     \
       static_cast<const int*>(e10), static_cast<const int*>(hist0),      \
       static_cast<int*>(qrows), static_cast<int*>(filt),                 \
-      static_cast<int*>(ok), static_cast<int*>(cand),                    \
-      static_cast<int*>(e0n5), static_cast<int*>(e1n5), B, H, W
-#define PLK_IMAGE_LAUNCH(BPP)                                           \
-  if (ok)                                                               \
-    image_kernel<BPP, true><<<grid, block, 0, st>>>(PLK_IMAGE_ARGS);    \
-  else                                                                  \
-    image_kernel<BPP, false><<<grid, block, 0, st>>>(PLK_IMAGE_ARGS);
+      static_cast<int*>(ok), static_cast<int*>(attempts),                \
+      static_cast<int*>(cand), static_cast<int*>(e0n5),                  \
+      static_cast<int*>(e1n5), B, H, W
+#define PLK_IMAGE_LAUNCH(BPP)                                                \
+  if (attempts)                                                              \
+    image_kernel<BPP, true, true><<<grid, block, 0, st>>>(PLK_IMAGE_ARGS);   \
+  else if (ok)                                                               \
+    image_kernel<BPP, true, false><<<grid, block, 0, st>>>(PLK_IMAGE_ARGS);  \
+  else                                                                       \
+    image_kernel<BPP, false, false><<<grid, block, 0, st>>>(PLK_IMAGE_ARGS);
   switch (bpp) {
     case 1: PLK_IMAGE_LAUNCH(1) break;
     case 2: PLK_IMAGE_LAUNCH(2) break;

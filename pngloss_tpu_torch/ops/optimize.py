@@ -16,7 +16,8 @@ against:
   * Sierra-lite diffusion with C truncating division into three dither
     rows of W+5 columns (the carried error of pixel x sits at column x+2);
   * the row cost: histogram-delta bits plus the derivative error / 128;
-  * libpng's MSAD self-check and the first-minimum winner.
+  * libpng's MSAD self-check and the first-minimum winner;
+  * the strength loop of a row that must pass the self-check.
 
 Layouts: a row is (B, W, bpp) int32; candidate rows of the 5 filters are
 (B, 5, W, bpp); dither rows are (B, W+5, 4) per image and (B, 5, W+5, 4)
@@ -285,3 +286,42 @@ def first_min(cost: torch.Tensor) -> torch.Tensor:
     """Index of the first minimum over the 5 candidates (the C code keeps
     the earliest filter on ties)."""
     return cost.argmin(-1)
+
+
+def strength_loop(attempt, s, orow, qprev, oprev, e0, e1, hist, w_real):
+    """One row that must pass the MSAD self-check, from the state
+    (qprev, oprev, e0, e1, hist) the previous row left: images with no
+    passing filter retry at strength s-1; at s <= 0 the minimum true cost
+    is accepted, ties to the lowest filter (where the C tool would abort).
+    ``attempt(s)`` runs one attempt of the row at strengths s (B,) and
+    returns what ``quantize_row`` returns. Each image's result is its own
+    first successful attempt, whatever the rest of the batch needs. One
+    host sync per attempt.
+
+    Returns the winner's (qrow, hist, e0n, e1n), its filter id (B,) int64
+    and the attempts each image took (B,) int32."""
+    b = orow.shape[0]
+    dev = orow.device
+    s = s.clone()
+    found = torch.zeros(b, dtype=torch.bool, device=dev)
+    best = torch.zeros(b, dtype=torch.int64, device=dev)
+    tries = torch.zeros(b, dtype=torch.int32, device=dev)
+    state = (qprev, hist, e0, e1)
+    while True:
+        q5, h5, e0n, e1n = attempt(s)
+        tries += (~found).to(torch.int32)
+        cost = row_cost(q5, hist, h5, qprev, orow, oprev, w_real)
+        passing = msad_valid(q5, qprev, w_real)
+        found_real = passing.any(1)
+        give_up = ~found_real & (s <= 0)
+        bf = first_min(adaptive_cost(cost, passing | give_up[:, None]))
+        upd = ~found & (found_real | give_up)
+        best = torch.where(upd, bf, best)
+        state = tuple(
+            torch.where(upd.view(-1, *([1] * (new.dim() - 2))),
+                        pick(new, bf), old)
+            for new, old in zip((q5, h5, e0n, e1n), state))
+        found = found | upd
+        s = torch.where(found, s, (s - 1).clamp(min=0))
+        if bool(found.all()):
+            return tuple(t.contiguous() for t in state), best, tries

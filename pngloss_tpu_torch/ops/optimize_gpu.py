@@ -14,8 +14,10 @@ same-shaped (possibly padded) working-format planes:
      embedding mode every row runs the MSAD self-check: the image kernel
      speculates at full strength and flags each image where some row had
      no passing filter; only those images re-run through the per-row path
-     (``optimize_rows``: every row through step 2's loop, the row kernel
-     with carried state), and their results replace the speculation's.
+     (``optimize_rows``: row 0 through step 2's loop, then the rows after
+     it in one launch of the image kernel's retry variant, which runs the
+     strength loop of every row on the device), and their results replace
+     the speculation's.
 
 An image one row high runs step 2 alone. The kernels compare the adaptive
 frequency alone in 32 bits and then a key built from the rank of the
@@ -31,28 +33,24 @@ from pngloss_tpu_torch.convert import Carry
 from pngloss_tpu_torch.ops import hist as hist_op
 from pngloss_tpu_torch.ops import image as image_op
 from pngloss_tpu_torch.ops import row as row_op
-from pngloss_tpu_torch.ops.optimize import (
-    adaptive_cost,
-    first_min,
-    msad_valid,
-    pick,
-    row_cost,
-)
+from pngloss_tpu_torch.ops.optimize import strength_loop
 
 # share of free device memory one chunk may take
 _MEMORY_SHARE = 0.25
-# the pre-pass kernel's grid holds one image per y index
-_MAX_CHUNK = 65535
+# every kernel's grid is one-dimensional, at least one block per image;
+# far below its 2^31 - 1, and a chunk this large is cut by memory first
+_MAX_CHUNK = 1 << 20
 
 
 def bytes_per_image(h: int, w: int, bpp: int) -> int:
     """Device bytes one image of a CUDA batch holds at once: the uint8
     plane, the int32 winner rows, the uint8 output, the per-row path's
-    int32 originals and rows (embedding mode's fallback), and the 5
-    candidates' rows and dither rows (a row attempt's outputs, and the
-    image kernel's two sets of scratch)."""
+    int32 originals and rows and the uint8 originals its kernel reads
+    (embedding mode's fallback), and the 5 candidates' rows and dither
+    rows (a row attempt's outputs, and the image kernel's two sets of
+    scratch)."""
     wb = w * bpp
-    return (h * wb * (1 + 4 + 1 + 4 + 4)
+    return (h * wb * (1 + 4 + 1 + 4 + 4 + 1)
             + 4 * 5 * 3 * (wb + 2 * 4 * (w + 5)) + 8192)
 
 
@@ -75,45 +73,27 @@ def zero_carry(b: int, w: int, bpp: int, device) -> Carry:
 
 
 def row_step(s, bleed: int, orow, carry: Carry, ofreq, w_real):
-    """One row with the MSAD self-check and the strength fallback, from the
-    state ``carry`` the previous row left. Images with no passing filter
-    retry at strength s-1; at s <= 0 the min-cost row is accepted (where
-    the C tool would abort). One host sync per attempt.
-    Returns the winner's state as the next row's Carry and its filter id
-    (B,) int64."""
+    """One row with the MSAD self-check and the strength fallback
+    (``strength_loop`` around the row kernel), from the state ``carry``
+    the previous row left. One host sync per attempt. Returns the winner's
+    state as the next row's Carry, its filter id (B,) int64 and the
+    attempts each image took (B,) int32."""
     qprev, oprev, e0, e1, hist = carry
-    b = orow.shape[0]
-    dev = orow.device
-    s = s.clone()
-    found = torch.zeros(b, dtype=torch.bool, device=dev)
-    best = torch.zeros(b, dtype=torch.int64, device=dev)
-    state = (qprev, hist, e0, e1)
-    while True:
-        q5, h5, e0n, e1n = row_op.row_attempt(s, bleed, orow, qprev, e0, e1,
-                                              hist, ofreq, w_real)
-        cost = row_cost(q5, hist, h5, qprev, orow, oprev, w_real)
-        passing = msad_valid(q5, qprev, w_real)
-        found_real = passing.any(1)
-        give_up = ~found_real & (s <= 0)
-        bf = first_min(adaptive_cost(cost, passing | give_up[:, None]))
-        upd = ~found & (found_real | give_up)
-        best = torch.where(upd, bf, best)
-        state = tuple(
-            torch.where(upd.view(-1, *([1] * (new.dim() - 2))),
-                        pick(new, bf), old)
-            for new, old in zip((q5, h5, e0n, e1n), state))
-        found = found | upd
-        s = torch.where(found, s, (s - 1).clamp(min=0))
-        if bool(found.all()):
-            q, h, e0n, e1n = (t.contiguous() for t in state)
-            return Carry(q, orow, e0n, e1n, h), best
+
+    def attempt(s_try):
+        return row_op.row_attempt(s_try, bleed, orow, qprev, e0, e1, hist,
+                                  ofreq, w_real)
+
+    (q, h, e0n, e1n), best, tries = strength_loop(
+        attempt, s, orow, qprev, oprev, e0, e1, hist, w_real)
+    return Carry(q, orow, e0n, e1n, h), best, tries
 
 
 def row0(s, bleed: int, orig0, ofreq, w_real):
-    """Row 0: ``row_step`` from the zero state."""
+    """Row 0: ``row_step`` from the zero state, without its attempts."""
     b, w, bpp = orig0.shape
     return row_step(s, bleed, orig0,
-                    zero_carry(b, w, bpp, orig0.device), ofreq, w_real)
+                    zero_carry(b, w, bpp, orig0.device), ofreq, w_real)[:2]
 
 
 def optimize_rows(s, bleed: int, orig, ofreq, w_real, carry=None):
@@ -121,17 +101,27 @@ def optimize_rows(s, bleed: int, orig, ofreq, w_real, carry=None):
     counterpart of ``optimize_batch_pallas_t(use_row_filters=False)``.
 
     orig (B, R, W, bpp) int32 originals of the rows to run; carry: the
-    state the row before them left (None: they start at row 0). Returns
-    the winner rows (B, R, W, bpp) int32 and filter ids (B, R) int64."""
+    state the row before them left (None: they start at row 0, which runs
+    through ``row_step``). The rows after it run in one call of the image
+    stage's retry variant: on CUDA tensors one kernel launch with no host
+    round trip per attempt, each image retrying alone. Returns the winner
+    rows (B, R, W, bpp) int32 and filter ids (B, R) int64."""
     b, r, w, bpp = orig.shape
-    if carry is None:
-        carry = zero_carry(b, w, bpp, orig.device)
     q = torch.empty_like(orig)
     f = torch.empty((b, r), dtype=torch.int64, device=orig.device)
-    for y in range(r):
-        carry, f[:, y] = row_step(s, bleed, orig[:, y].contiguous(), carry,
-                                  ofreq, w_real)
-        q[:, y] = carry.qprev
+    done = 0
+    if carry is None:
+        carry, f[:, 0] = row0(s, bleed, orig[:, 0].contiguous(), ofreq,
+                              w_real)
+        q[:, 0] = carry.qprev
+        done = 1
+    if r > done:
+        # the kernel reads originals as bytes, the row before them first
+        rows = torch.cat([carry.oprev[:, None], orig[:, done:]], 1)
+        rows = rows.to(torch.uint8).view(b, -1, w * bpp)
+        q[:, done:], f[:, done:], _ = image_op.image_rows(
+            s, bleed, w_real, ofreq, rows, carry.qprev, carry.e0, carry.e1,
+            carry.hist, adaptive=True, retry=True)
     return q, f
 
 

@@ -11,8 +11,20 @@ import numpy as np
 import pytest
 import torch
 
-from pngloss_tpu_torch.ops import hist, image, optimize_batch_auto, row
-from pngloss_tpu_torch.ops.edges import EDGES, edge_inputs
+from pngloss_tpu_torch.ops import (
+    hist,
+    image,
+    optimize_batch_auto,
+    optimize_gpu,
+    row,
+)
+from pngloss_tpu_torch.ops.edges import (
+    EDGES,
+    HIST_EDGES,
+    edge_inputs,
+    hist_edge_inputs,
+    rows_by_step,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +77,19 @@ def test_hist_kernel_matches_plain(cuda, bpp):
                      [hist.original_frequencies_ref(rows_d, bpp, *args)])
 
 
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", sorted(HIST_EDGES))
+def test_hist_kernel_at_the_designs_edges(cuda, name, bpp):
+    """Row pitches of 1 to 16396 bytes, bases and pitches aligned to 16, 4
+    and 1 bytes, rows that share a warp, a constant image, real sizes of
+    1 x 1, 1 image and 33: the kernel on the card against its plain
+    version on the CPU."""
+    for on_card, on_cpu in zip(hist_edge_inputs(name, bpp, cuda),
+                               hist_edge_inputs(name, bpp, "cpu")):
+        _assert_same([hist.original_frequencies(*on_card)],
+                     [hist.original_frequencies_ref(*on_cpu)])
+
+
 @pytest.mark.parametrize("bleed", [1, 2, 32767])
 @pytest.mark.parametrize("bpp", [1, 2, 3, 4])
 def test_row_and_image_kernels_match_plain(cuda, bpp, bleed):
@@ -107,6 +132,106 @@ def test_adaptive_image_kernel_matches_plain(cuda, bpp):
         _assert_same(image.image_rows(*args, adaptive=True), want)
         oks.update(want[2].tolist())
     assert 1 in oks
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_retry_image_kernel_matches_plain(cuda, bpp):
+    """The image kernel's retry variant (embedding mode's per-row path in
+    one launch): rows, filters and attempts per image, on inputs where
+    some rows retry; the plain version's CUDA-graph replay against its
+    eager run on the CPU."""
+    rng = np.random.default_rng(470 + bpp)
+    s, w_real = _i32(STRENGTHS, cuda), _i32(W_REAL, cuda)
+    most = 0
+    for bleed in (1, 2, 32767):
+        st = _row_state(rng, bpp, cuda)
+        img = rng.integers(0, 256, (4, 6, 7 * bpp), dtype=np.uint8)
+        if bpp % 2 == 0:
+            img.reshape(4, 6, 7, bpp)[:, 1::2, ::2, bpp - 1] = 0
+        args = (s, bleed, w_real, st["ofreq"],
+                torch.as_tensor(img, device=cuda), st["qprev"], st["e0"],
+                st["e1"], st["hist"])
+        before = image.RETRY_LAUNCHES
+        got = image.image_rows(*args, adaptive=True, retry=True)
+        assert image.RETRY_LAUNCHES == before + 1
+        want = image.image_rows_retry_ref(*args)
+        _assert_same(got, want)
+        _assert_same(want, image.image_rows_retry_ref(*(
+            a.cpu() if isinstance(a, torch.Tensor) else a for a in args)))
+        most = max(most, int(want[2].max()))
+    assert most > 5, "no row retried"
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_optimize_rows_cuda_matches_the_loop_over_row_step(cuda, bpp):
+    """The per-row path on the card: the row kernel runs the attempts of
+    row 0 only, the retry variant once, and rows, filters and attempts per
+    image equal the row kernel with the strength loop on the host; from a
+    carry (no row 0) the row kernel is not launched at all."""
+    rng = np.random.default_rng(492 + bpp)
+    b, h, w = 5, 7, 9
+    rows = rng.integers(0, 256, (b, h, w * bpp), dtype=np.uint8)
+    if bpp % 2 == 0:
+        rows.reshape(b, h, w, bpp)[:, ::2, 1::3, bpp - 1] = 0
+    rows_d = torch.as_tensor(rows, device=cuda)
+    s, wr = _i32([45, 19, 60, 3, 200], cuda), _i32([9, 9, 5, 9, 2], cuda)
+    ofreq = hist.original_frequencies(rows_d, bpp, wr)
+    orig = rows_d.view(b, h, w, bpp).to(torch.int32)
+
+    *want, tries_host = rows_by_step(s, 2, orig, ofreq, wr)
+    n0 = row.LAUNCHES
+    carry, _, tries = optimize_gpu.row_step(
+        s, 2, orig[:, 0].contiguous(),
+        optimize_gpu.zero_carry(b, w, bpp, cuda), ofreq, wr)
+    first = row.LAUNCHES - n0
+    tries = tries + image.image_rows(s, 2, wr, ofreq, rows_d, carry.qprev,
+                                     carry.e0, carry.e1, carry.hist,
+                                     adaptive=True, retry=True)[2]
+    _assert_same([tries], [tries_host])
+    assert int(tries.max()) > h, "no row retried"
+
+    before = (row.LAUNCHES, image.RETRY_LAUNCHES)
+    got = optimize_gpu.optimize_rows(s, 2, orig, ofreq, wr)
+    assert (row.LAUNCHES - before[0], image.RETRY_LAUNCHES - before[1]) == (
+        first, 1)
+    _assert_same(got, want)
+
+    before = (row.LAUNCHES, image.RETRY_LAUNCHES)
+    q, f = optimize_gpu.optimize_rows(s, 2, orig[:, 1:], ofreq, wr,
+                                      carry=carry)
+    assert (row.LAUNCHES, image.RETRY_LAUNCHES) == (before[0], before[1] + 1)
+    _assert_same((q, f), (want[0][:, 1:], want[1][:, 1:]))
+
+
+def test_embedding_fallback_is_one_retry_launch(cuda):
+    """An embedding call whose speculation fails: the row kernel runs the
+    attempts of row 0 (the batch's, then the failed images'), the retry
+    variant once."""
+    rows = np.random.default_rng(700).integers(0, 256, (4, 6, 21),
+                                               dtype=np.uint8)
+    rows_d = torch.as_tensor(rows, device=cuda)
+    s, wr = _i32([45] * 4, cuda), _i32([7] * 4, cuda)
+    ofreq = hist.original_frequencies(rows_d, 3)
+    orig0 = rows_d[:, 0].reshape(4, 7, 3).to(torch.int32)
+    c0, _ = optimize_gpu.row0(s, 2, orig0, ofreq, wr)
+    ok = image.image_rows(s, 2, wr, ofreq, rows_d, c0.qprev, c0.e0, c0.e1,
+                          c0.hist, adaptive=True)[2]
+    bad = (ok == 0).nonzero().squeeze(1)
+    assert 0 < bad.numel() < 4
+    firsts = []
+    for sel in (slice(None), bad):
+        n0 = row.LAUNCHES
+        optimize_gpu.row0(s[sel], 2, orig0[sel], ofreq[sel], wr[sel])
+        firsts.append(row.LAUNCHES - n0)
+    before = (row.LAUNCHES, image.ADAPTIVE_LAUNCHES, image.RETRY_LAUNCHES)
+    qg, fg = optimize_batch_auto(rows, 45, 2, bpp=3, device=cuda,
+                                 use_row_filters=False)
+    assert (row.LAUNCHES - before[0], image.ADAPTIVE_LAUNCHES - before[1],
+            image.RETRY_LAUNCHES - before[2]) == (sum(firsts), 1, 1)
+    qc, fc = optimize_batch_auto(rows, 45, 2, bpp=3, device="cpu",
+                                 use_row_filters=False)
+    np.testing.assert_array_equal(qg.cpu().numpy(), qc.numpy())
+    np.testing.assert_array_equal(fg.cpu().numpy(), fc.numpy())
 
 
 @pytest.mark.parametrize("bpp", [1, 2, 3, 4])
@@ -263,6 +388,8 @@ def test_kernels_launch_on_their_tensors_device(cuda):
                 _assert_same(image.image_rows(*args, adaptive=adaptive),
                              image.image_rows_ref(*cpu_args,
                                                   adaptive=adaptive))
+            _assert_same(image.image_rows(*args, adaptive=True, retry=True),
+                         image.image_rows_retry_ref(*cpu_args))
         pngs = _pngs(465, n=4)
         want = [r.unwrap() for r in pipeline.compress_many(pngs, 19,
                                                            device="cpu")]
@@ -280,6 +407,8 @@ def test_kernels_at_the_designs_edges(cuda, name):
     for adaptive in (False, True):
         _assert_same(image.image_rows(*image_args, adaptive=adaptive),
                      image.image_rows_ref(*image_cpu, adaptive=adaptive))
+    _assert_same(image.image_rows(*image_args, adaptive=True, retry=True),
+                 image.image_rows_retry_ref(*image_cpu))
 
 
 def test_plain_versions_count_candidates_alike_on_the_card(cuda):
