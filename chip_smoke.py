@@ -20,6 +20,11 @@ Phases, each of which raises on failure:
      inside the next channel's band, transparent pixels at bpp 2 and 4,
      ragged widths, rows that retry from strength 32, 255, 2 and 1, an
      image whose every row fails; their plain versions run on the CPU);
+     the retry variant's give-up branch (no filter passes at strength 0)
+     and the adaptive variant's cleared ok, through the test-only
+     ``never_pass`` flag on images at strengths 0, 1, 2 and 40 beside
+     unflagged ones in one launch, at bpp 1-4: flagged images take s + 1
+     attempts a row, unflagged ones equal themselves run alone;
      (3b) at the main path's full shapes, each
      kernel's time beside its plain version's, and with ``--parent DIR``
      (a checkout of an earlier commit) the kernels of both trees timed in
@@ -61,9 +66,14 @@ Phases, each of which raises on failure:
      current device;
  11. a device trace (``tracing.device_trace``) of one main-path run: the
      trace holds the three kernels, as many launches of each as the
-     counters saw, and their summed device time.
+     counters saw, and their summed device time;
+ 12. the random differential check (``tools/fuzz_torch.run_batch``) on
+     fixed seeds: random images of up to 8 px a side through
+     ``compress_many`` and embedding mode against the scalar model, and
+     each kernel against its plain version on a random padded bucket per
+     batch, at bpp 1-4 and in both modes; any mismatch fails the run.
 
-Each of phases 5-11 sets the launch counters to 0 just before the path it
+Each of phases 5-12 sets the launch counters to 0 just before the path it
 drives and reads them just after; a kernel of that path that was not
 launched fails the run.
 
@@ -166,6 +176,10 @@ NO_LIBRARY = ("no PyTorch call computes any of them: the pre-pass needs five "
               "predictors' residuals before any bincount, and row and "
               "image are sequential recurrences")
 EMBED_KERNELS = ("hist", "row", "image_adaptive", "image_retry")
+# phase 12: batches (one seed each), end-to-end images a batch and their
+# largest side, and the largest kernel bucket in image-kernel channel steps
+FUZZ_SEED, FUZZ_BATCHES, FUZZ_E2E, FUZZ_MAX_PX = 1200, 40, 5, 8
+FUZZ_MAX_STEPS = 512
 
 
 def card_line() -> str:
@@ -312,12 +326,50 @@ def check_kernels(device) -> dict[str, int]:
         errs["image_retry"] = max(errs["image_retry"], _max_err(
             image.image_rows(*image_args, adaptive=True, retry=True),
             image.image_rows_retry_ref(*image_cpu)))
+    for key, err in check_give_up(device).items():
+        errs[key] = max(errs[key], err)
     if any(errs.values()):
         raise AssertionError(f"kernel != plain version: {errs}")
     if oks != {0, 1}:
         raise AssertionError(f"small adaptive inputs gave ok {oks}, not both")
     if not retried:
         raise AssertionError("no row of the small inputs retried")
+    return errs
+
+
+def check_give_up(device) -> dict[str, int]:
+    """Phase 3a, the give-up branch: the adaptive and the retry variant
+    with the test-only never_pass flag on images at strengths 0, 1, 2 and
+    40 beside unflagged images, at bpp 1-4, against their plain versions
+    on the same card tensors. Flagged images must get ok 0 and take s + 1
+    attempts a row; unflagged ones must equal themselves run alone.
+    Returns the max abs error per variant."""
+    from pngloss_tpu_torch.ops import image
+    from pngloss_tpu_torch.ops.edges import GIVE_UP_H, give_up_inputs
+
+    errs = {"image_adaptive": 0, "image_retry": 0}
+    for bpp in (1, 2, 3, 4):
+        args, flags = give_up_inputs(bpp, device)
+        retry = image.image_rows(*args, adaptive=True, retry=True,
+                                 never_pass=flags)
+        adaptive = image.image_rows(*args, adaptive=True, never_pass=flags)
+        errs["image_retry"] = max(errs["image_retry"], _max_err(
+            retry, image.image_rows_retry_ref(*args, never_pass=flags)))
+        errs["image_adaptive"] = max(errs["image_adaptive"], _max_err(
+            adaptive, image.image_rows_ref(*args, adaptive=True,
+                                           never_pass=flags)))
+        flagged = flags.bool()
+        want = (args[0][flagged] + 1) * (GIVE_UP_H - 1)
+        if _max_err(retry[2][flagged], want) or bool(
+                adaptive[2][flagged].any()):
+            raise AssertionError(
+                f"give-up at bpp {bpp}: attempts {retry[2].tolist()}, ok "
+                f"{adaptive[2].tolist()} for never_pass {flags.tolist()}")
+        for k in (~flagged).nonzero().squeeze(1).tolist():
+            one = [a[k:k + 1] if hasattr(a, "shape") else a for a in args]
+            alone = image.image_rows(*one, adaptive=True, retry=True)
+            errs["image_retry"] = max(errs["image_retry"], _max_err(
+                alone, tuple(t[k:k + 1] for t in retry)))
     return errs
 
 
@@ -1292,6 +1344,54 @@ def run_tracing(device, pngs, want, log) -> dict[str, int]:
     return counts
 
 
+def load_fuzz_tool():
+    """tools/fuzz_torch.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "fuzz_torch", os.path.join(ROOT, "tools", "fuzz_torch.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_fuzz(device, log) -> dict[str, int]:
+    """Phase 12: FUZZ_BATCHES seeded batches of tools/fuzz_torch.py; any
+    mismatch raises. Returns the launch counts of the run."""
+    import torch
+
+    fuzz = load_fuzz_tool()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    recs = []
+    for seed in range(FUZZ_SEED, FUZZ_SEED + FUZZ_BATCHES):
+        recs += fuzz.run_batch(seed, device, e2e_images=FUZZ_E2E,
+                               max_px=FUZZ_MAX_PX, max_steps=FUZZ_MAX_STEPS)
+    seconds = time.perf_counter() - t0
+    counts = read_counts("[12] fuzz", [k[0] for k in KERNELS])
+    summary = fuzz.summarize(recs)
+    bad = [r for r in recs if not r["identical"]]
+    if bad:
+        raise AssertionError(f"fuzz: {len(bad)} mismatches, the first "
+                             f"{json.dumps(bad[0])}")
+    if (summary["kernel_batches"] < 40 or summary["end_to_end"] < 200
+            or summary["modes"] != ["cli", "embed"]
+            or summary["bpps"] != {"end_to_end": [1, 2, 3, 4],
+                                   "kernels": [1, 2, 3, 4]}):
+        raise AssertionError(f"fuzz: too little coverage {summary}")
+    shapes = sorted({(r["bucket"][0], r["bucket"][1], r["bpp"])
+                     for r in recs if r["check"] == "kernels"})
+    log(f"  seeds {FUZZ_SEED}-{FUZZ_SEED + FUZZ_BATCHES - 1}, end-to-end "
+        f"images up to {FUZZ_MAX_PX} px a side, kernel buckets (H, W, bpp) "
+        f"{shapes}; launches {counts}")
+    log(f"  fuzz: {summary['cases']} cases ({summary['end_to_end']} "
+        f"end to end, {summary['kernel_cases']} images in "
+        f"{summary['kernel_batches']} kernel batches), {seconds:.1f} s, "
+        f"{summary['mismatches']} mismatches")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU.")
@@ -1356,7 +1456,8 @@ def main(argv=None) -> int:
             ("[8] suite", lambda: run_suite_phase(device, pngs, want, log)),
             ("[9] website", lambda: run_website(device, pngs, want, log)),
             ("[10] mesh", lambda: run_mesh(device, pngs, want, embed, log)),
-            ("[11] tracing", lambda: run_tracing(device, pngs, want, log))):
+            ("[11] tracing", lambda: run_tracing(device, pngs, want, log)),
+            ("[12] fuzz", lambda: run_fuzz(device, log))):
         log(label)
         t0 = time.perf_counter()
         phase()

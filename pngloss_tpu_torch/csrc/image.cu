@@ -19,11 +19,12 @@
 //     self-check and the row's strength is above 0, the block lowers it by
 //     one and runs the row again; at strength 0 with no passing filter the
 //     minimum true cost wins (where the C tool would abort). This variant
-//     never fails; it reports the row attempts each image took. The
-//     strength-0 branch has never run on the device: at strength 0 the 5
-//     candidates are one row, whose MSAD choice is one of them, so no input
-//     reaches it, and only the plain version's test (with a stubbed
-//     self-check) holds its rule. A retry
+//     never fails; it reports the row attempts each image took. At strength
+//     0 the 5 candidates are one row, whose MSAD choice is one of them, so
+//     no real input reaches the strength-0 branch: the test-only never_pass
+//     flag fails every filter of an image's rows, which then retry down to
+//     strength 0 and take the branch (in the adaptive variant, the image's
+//     ok is 0). A retry
 //     writes the same scratch set again (the previous row's winner lives in
 //     the other), reloads the histogram at row start, which stays in shared
 //     memory until a winner posts, and loops around the one call of the
@@ -106,8 +107,9 @@ image_kernel(const int* __restrict__ s, int bleed,
              const int* __restrict__ qprev0, const int* __restrict__ e00,
              const int* __restrict__ e10, const int* __restrict__ hist0,
              int* __restrict__ qrows, int* __restrict__ filt,
-             int* __restrict__ ok, int* __restrict__ attempts, int* cand,
-             int* e0n5, int* e1n5, int B, int H, int W) {
+             int* __restrict__ ok, int* __restrict__ attempts,
+             const int* __restrict__ never_pass, int* cand, int* e0n5,
+             int* e1n5, int B, int H, int W) {
   static_assert(ADAPTIVE || !RETRY, "only the adaptive check can fail");
   __shared__ int os[plk::kFilters][256];      // rank keys (rank_keys)
   __shared__ int hw[256];                     // histogram at row start
@@ -173,7 +175,11 @@ image_kernel(const int* __restrict__ s, int bleed,
       if constexpr (ADAPTIVE) {
         // every lane stored the same values of the candidate row, and
         // quantize_row_warp ends in __syncwarp, so the whole warp sees them
-        pass = msad_passes<BPP>(f, lane, wr, qrow, qprev);
+        // never_pass (test-only, null in production) is read here, per
+        // attempt and off the chain: held in a register across the rows it
+        // cost the retry variant 1.6% through a spill
+        pass = msad_passes<BPP>(f, lane, wr, qrow, qprev) &&
+               !(never_pass && never_pass[b]);
       }
       if (lane == 0) {
         // RETRY keeps the true cost: the row may be accepted with no
@@ -252,7 +258,9 @@ image_kernel(const int* __restrict__ s, int bleed,
 // embedding mode's MSAD self-check on every row when not null (1 = every
 // row had a passing filter); attempts (B,) selects, when not null (ok is
 // null then), the self-check with the strength loop per row, and gets the
-// row attempts each image took; scratch: two sets of the 5 candidates' rows
+// row attempts each image took; never_pass (B,), test-only and null in
+// every production call, fails every filter of the images where it is not
+// 0 (adaptive and retry only); scratch: two sets of the 5 candidates' rows
 // cand (2, B, 5, W, bpp) and next dither rows e0n5, e1n5 (2, B, 5, W+5, 4),
 // 16-byte aligned; all int32 but rows.
 extern "C" int plk_image_rows(const void* s, int bleed, const void* w_real,
@@ -260,11 +268,12 @@ extern "C" int plk_image_rows(const void* s, int bleed, const void* w_real,
                               const void* qprev0, const void* e00,
                               const void* e10, const void* hist0,
                               void* qrows, void* filt, void* ok,
-                              void* attempts, void* cand, void* e0n5,
-                              void* e1n5, int B, int H, int W, int bpp,
-                              void* stream) {
+                              void* attempts, const void* never_pass,
+                              void* cand, void* e0n5, void* e1n5, int B,
+                              int H, int W, int bpp, void* stream) {
   if (B <= 0 || H < 2) return static_cast<int>(cudaGetLastError());
-  if (ok && attempts) return static_cast<int>(cudaErrorInvalidValue);
+  if ((ok && attempts) || (never_pass && !ok && !attempts))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(B), block(plk::kFilters * plk::kWarp);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PLK_IMAGE_ARGS                                                    \
@@ -274,8 +283,8 @@ extern "C" int plk_image_rows(const void* s, int bleed, const void* w_real,
       static_cast<const int*>(e10), static_cast<const int*>(hist0),      \
       static_cast<int*>(qrows), static_cast<int*>(filt),                 \
       static_cast<int*>(ok), static_cast<int*>(attempts),                \
-      static_cast<int*>(cand), static_cast<int*>(e0n5),                  \
-      static_cast<int*>(e1n5), B, H, W
+      static_cast<const int*>(never_pass), static_cast<int*>(cand),      \
+      static_cast<int*>(e0n5), static_cast<int*>(e1n5), B, H, W
 #define PLK_IMAGE_LAUNCH(BPP)                                                \
   if (attempts)                                                              \
     image_kernel<BPP, true, true><<<grid, block, 0, st>>>(PLK_IMAGE_ARGS);   \

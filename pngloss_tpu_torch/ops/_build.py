@@ -45,7 +45,7 @@ _SIGNATURES = {
     "plk_row_attempt": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _P, _I, _I, _I, _P),
     "plk_image_rows": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+                       _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

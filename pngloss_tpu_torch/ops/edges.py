@@ -23,6 +23,11 @@ pitches from 1 byte to 16396, bases 1 and 4 bytes off a 16-byte boundary,
 a constant image (one hot bin per filter), real sizes of 1 x 1 and of the
 whole plane, 1 image and 33.
 
+``give_up_inputs`` reaches the retry variant's give-up branch (no filter
+passes at strength 0) through the test-only ``never_pass`` flag: flagged
+images at strengths 0, 1, 2 and 40 (which starts in the wide-band loop and
+falls below it) beside unflagged ones, in one launch.
+
 ``rows_by_step`` is what the card checks hold ``optimize_gpu.optimize_rows``
 to: the same per-row path with the strength loop of every row on the host.
 """
@@ -95,6 +100,35 @@ def edge_inputs(name: str, device):
              st["hist"], st["ofreq"], wr),
             (s, bleed, wr, st["ofreq"], rows, st["qprev"], st["e0"],
              st["e1"], st["hist"]))
+
+
+# per image: strength, never_pass flag, real width (of GIVE_UP_W)
+GIVE_UP = ((0, 1, 16), (1, 1, 9), (2, 1, 16), (40, 1, 5), (40, 0, 16),
+           (2, 0, 12))
+GIVE_UP_H, GIVE_UP_W = 4, 16
+
+
+def give_up_inputs(bpp: int, device, strengths=None):
+    """(image-kernel args, never_pass (B,) int32) of the GIVE_UP batch at
+    ``bpp``, with ``strengths`` in place of its own where given; the same
+    seed gives the same values on every device."""
+    s, flags, w_real = (list(c) for c in zip(*GIVE_UP))
+    b, h, w = len(GIVE_UP), GIVE_UP_H, GIVE_UP_W
+    rng = np.random.default_rng(980 + bpp)
+    img = rng.integers(0, 256, (b, h, w, bpp))
+    if bpp % 2 == 0:
+        img[:, :, 1::3, bpp - 1] = 0
+    st = dict(qprev=rng.integers(0, 256, (b, w, bpp)),
+              e0=rng.integers(-40, 41, (b, w + 5, 4)),
+              e1=rng.integers(-40, 41, (b, w + 5, 4)),
+              hist=rng.integers(0, 40, (b, 256)),
+              ofreq=rng.integers(0, 40, (b, 5, 256)))
+    st = {k: _i32(v, device) for k, v in st.items()}
+    rows = torch.as_tensor(img.reshape(b, h, w * bpp).astype(np.uint8),
+                           device=device)
+    return ((_i32(s if strengths is None else strengths, device), 2,
+             _i32(w_real, device), st["ofreq"], rows, st["qprev"], st["e0"],
+             st["e1"], st["hist"]), _i32(flags, device))
 
 
 # name: (B, H, W in pixels, bytes the base lies after a 16-byte boundary,

@@ -20,6 +20,11 @@ variants:
     strength lower while no filter passes; at strength 0 the minimum true
     cost wins. It never fails, and reports the row attempts of each image.
 
+At strength 0 a real row always has a passing filter (the 5 candidates are
+then one row, and the MSAD choice is one of them); the test-only
+``never_pass`` fails every filter of the images it flags, in the adaptive
+and the retry variant alike, so that the give-up rule runs.
+
 On a CUDA tensor ``image_rows`` launches ``csrc/image.cu``; on a CPU tensor
 it runs ``image_rows_ref`` or ``image_rows_retry_ref``.
 """
@@ -33,10 +38,10 @@ from pngloss_tpu_torch.ops.optimize import (
     NUM_FILTERS,
     adaptive_cost,
     first_min,
-    msad_valid,
     pick,
     quantize_row,
     row_cost,
+    self_check,
     strength_loop,
 )
 
@@ -47,7 +52,8 @@ RETRY_LAUNCHES = 0
 
 
 def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
-                   hist0, adaptive: bool = False, count=None):
+                   hist0, adaptive: bool = False, count=None,
+                   never_pass=None):
     """Plain version; arguments as for ``image_rows``; ``count`` as for
     ``quantize_row``, over rows 1..H-1.
 
@@ -70,7 +76,8 @@ def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
         def row_step():
             q5, h5, e0n, e1n = quantize_row(s, bleed, orow, qprev, e0, e1,
                                             hist, ofreq, w_real, count)
-            passing = msad_valid(q5, qprev, w_real) if adaptive else None
+            passing = (self_check(q5, qprev, w_real, never_pass)
+                       if adaptive else None)
             return q5, h5, e0n, e1n, passing
 
         counted = None if count is None else count.clone()
@@ -95,7 +102,7 @@ def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
 
 
 def image_rows_retry_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
-                         e10, hist0, count=None):
+                         e10, hist0, count=None, never_pass=None):
     """Plain version of the retry variant; arguments as for ``image_rows``;
     ``count`` as for ``quantize_row``, over every attempt of rows 1..H-1.
     Returns the winner rows, their filter ids and the row attempts each
@@ -132,7 +139,7 @@ def image_rows_retry_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
             orow.copy_(orig[:, y])
             state, best, n = strength_loop(attempt, s, orow, qprev,
                                            orig[:, y - 1], e0, e1, hist,
-                                           w_real)
+                                           w_real, never_pass)
             for buf, won in zip((qprev, hist, e0, e1), state):
                 buf.copy_(won)
             qrows[:, y - 1] = qprev
@@ -165,7 +172,7 @@ def _replayable(fn, device):
 
 
 def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
-               adaptive: bool = False, retry: bool = False):
+               adaptive: bool = False, retry: bool = False, never_pass=None):
     """s, w_real (B,) int32; ofreq (B, 5, 256) int32; rows (B, H, W*bpp)
     uint8 originals of the whole images; the row-0 winner state: qprev0
     (B, W, bpp), e00, e10 (B, W+5, 4), hist0 (B, 256), all int32.
@@ -174,18 +181,24 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
     image where some row had no filter passing the MSAD self-check; with
     ``adaptive`` and ``retry`` instead attempts (B,) int32, the row
     attempts each image took (rows, when every row passed at full
-    strength). A CUDA tensor launches the kernel; a CPU tensor runs the
-    plain version."""
+    strength). never_pass (B,) int32, test-only (None in every production
+    call), with ``adaptive``: every filter fails the self-check on every
+    row of the images where it is not 0. A CUDA tensor launches the kernel;
+    a CPU tensor runs the plain version."""
     global LAUNCHES, ADAPTIVE_LAUNCHES, RETRY_LAUNCHES
     if retry and not adaptive:
         raise ValueError("retry needs adaptive: only the MSAD self-check "
                          "can fail a row")
+    if never_pass is not None and not adaptive:
+        raise ValueError("never_pass needs adaptive: only the MSAD "
+                         "self-check can fail a row")
     if _build.route(rows) == "cpu":
         if retry:
             return image_rows_retry_ref(s, bleed, w_real, ofreq, rows,
-                                        qprev0, e00, e10, hist0)
+                                        qprev0, e00, e10, hist0,
+                                        never_pass=never_pass)
         return image_rows_ref(s, bleed, w_real, ofreq, rows, qprev0, e00,
-                              e10, hist0, adaptive)
+                              e10, hist0, adaptive, never_pass=never_pass)
     b, h, wb = rows.shape
     w, bpp = qprev0.shape[1], qprev0.shape[2]
     if h < 2 or w * bpp != wb or not 1 <= bpp <= 4 or bleed < 1:
@@ -200,6 +213,8 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
                            (e10, "e10", (b, w + 5, 4)),
                            (hist0, "hist0", (b, 256))):
         _build.require(t, name, i32, shape)
+    if never_pass is not None:
+        _build.require(never_pass, "never_pass", i32, (b,))
     for t, name in ((e00, "e00"), (e10, "e10")):
         _build.require_aligned(t, name)
     dev = rows.device
@@ -221,6 +236,7 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
             e10.data_ptr(), hist0.data_ptr(), qrows.data_ptr(),
             filt.data_ptr(), None if ok is None else ok.data_ptr(),
             None if attempts is None else attempts.data_ptr(),
+            None if never_pass is None else never_pass.data_ptr(),
             cand.data_ptr(), e0n5.data_ptr(), e1n5.data_ptr(), b, h, w, bpp,
             _build.stream_ptr(rows)), "plk_image_rows")
     if retry:

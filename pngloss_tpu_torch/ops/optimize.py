@@ -264,6 +264,16 @@ def msad_valid(qrow5, qprev, w_real):
     return chosen == filter_ids(qrow5.device).long()
 
 
+def self_check(qrow5, qprev, w_real, never_pass=None):
+    """``msad_valid``, with every candidate failing in the images where
+    ``never_pass`` (B,) is not 0: a test-only way to fail every filter of
+    a row, which no real row does at strength 0."""
+    passing = msad_valid(qrow5, qprev, w_real)
+    if never_pass is None:
+        return passing
+    return passing & (never_pass == 0)[:, None]
+
+
 # the cost of a candidate that fails the MSAD self-check: UINTMAX_MAX in
 # the C code (optimize_state.c:319-324), above every real cost
 FAIL_COST = torch.iinfo(torch.int64).max
@@ -288,7 +298,8 @@ def first_min(cost: torch.Tensor) -> torch.Tensor:
     return cost.argmin(-1)
 
 
-def strength_loop(attempt, s, orow, qprev, oprev, e0, e1, hist, w_real):
+def strength_loop(attempt, s, orow, qprev, oprev, e0, e1, hist, w_real,
+                  never_pass=None):
     """One row that must pass the MSAD self-check, from the state
     (qprev, oprev, e0, e1, hist) the previous row left: images with no
     passing filter retry at strength s-1; at s <= 0 the minimum true cost
@@ -296,7 +307,7 @@ def strength_loop(attempt, s, orow, qprev, oprev, e0, e1, hist, w_real):
     ``attempt(s)`` runs one attempt of the row at strengths s (B,) and
     returns what ``quantize_row`` returns. Each image's result is its own
     first successful attempt, whatever the rest of the batch needs. One
-    host sync per attempt.
+    host sync per attempt. ``never_pass`` as for ``self_check``.
 
     Returns the winner's (qrow, hist, e0n, e1n), its filter id (B,) int64
     and the attempts each image took (B,) int32."""
@@ -311,7 +322,7 @@ def strength_loop(attempt, s, orow, qprev, oprev, e0, e1, hist, w_real):
         q5, h5, e0n, e1n = attempt(s)
         tries += (~found).to(torch.int32)
         cost = row_cost(q5, hist, h5, qprev, orow, oprev, w_real)
-        passing = msad_valid(q5, qprev, w_real)
+        passing = self_check(q5, qprev, w_real, never_pass)
         found_real = passing.any(1)
         give_up = ~found_real & (s <= 0)
         bf = first_min(adaptive_cost(cost, passing | give_up[:, None]))

@@ -7,6 +7,9 @@ Skipped without a CUDA device. On the card (where JAX is not installed):
 (PNGLOSS_TEST_TPU=1 keeps tests/conftest.py from importing JAX.)
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -20,8 +23,10 @@ from pngloss_tpu_torch.ops import (
 )
 from pngloss_tpu_torch.ops.edges import (
     EDGES,
+    GIVE_UP_H,
     HIST_EDGES,
     edge_inputs,
+    give_up_inputs,
     hist_edge_inputs,
     rows_by_step,
 )
@@ -426,3 +431,48 @@ def test_plain_versions_count_candidates_alike_on_the_card(cuda):
         fn(*on_card, count=n_card)
         fn(*on_cpu, count=n_cpu)
         assert int(n_card) == int(n_cpu) > 0
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_give_up_branch_matches_plain(cuda, bpp):
+    """The test-only never_pass flag on images at strengths 0, 1, 2 and 40
+    beside unflagged images in one launch: the retry variant's give-up
+    branch and the adaptive variant's ok against their plain versions on
+    the same card tensors; flagged images take s + 1 attempts a row and get
+    ok 0, unflagged ones equal themselves run alone."""
+    args, flags = give_up_inputs(bpp, cuda)
+    retry = image.image_rows(*args, adaptive=True, retry=True,
+                             never_pass=flags)
+    _assert_same(retry, image.image_rows_retry_ref(*args, never_pass=flags))
+    adaptive = image.image_rows(*args, adaptive=True, never_pass=flags)
+    _assert_same(adaptive, image.image_rows_ref(*args, adaptive=True,
+                                                never_pass=flags))
+    flagged = flags.bool()
+    assert retry[2][flagged].tolist() == (
+        (args[0][flagged] + 1) * (GIVE_UP_H - 1)).tolist()
+    assert not adaptive[2][flagged].any()
+    for k in (~flagged).nonzero().squeeze(1).tolist():
+        one = [a[k:k + 1] if isinstance(a, torch.Tensor) else a
+               for a in args]
+        _assert_same(image.image_rows(*one, adaptive=True, retry=True),
+                     [t[k:k + 1] for t in retry])
+
+
+def _fuzz_tool():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "fuzz_torch.py")
+    spec = importlib.util.spec_from_file_location("fuzz_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("mode", ["cli", "embed"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fuzz_slice(cuda, seed, mode):
+    """A seeded slice of tools/fuzz_torch.py on the card: random images
+    through the entry point against the scalar model, and each kernel
+    against its plain version on a random bucket."""
+    recs = _fuzz_tool().run_batch(7000 + seed, cuda, mode=mode, max_px=12)
+    assert {r["check"] for r in recs} == {"end_to_end", "kernels"}
+    assert [r for r in recs if not r["identical"]] == []

@@ -1,6 +1,7 @@
 """The port imports nothing of the JAX package: no module of
-``pngloss_tpu_torch`` and no line of ``chip_smoke.py`` imports
-``pngloss_tpu`` or ``jax`` (an AST scan, one case per file), the port runs
+``pngloss_tpu_torch`` and no line of ``chip_smoke.py`` or
+``tools/fuzz_torch.py`` imports ``pngloss_tpu`` or ``jax`` (an AST scan,
+one case per file), the port runs
 in a process that refuses both (a ``sys.meta_path`` finder), and each of
 the port's copies of a JAX-free host module equals its original on small
 inputs."""
@@ -26,7 +27,7 @@ REFUSED = ("pngloss_tpu", "jax", "jaxlib")
 PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in glob.glob(
         os.path.join(REPO, "pngloss_tpu_torch", "**", "*.py"),
-        recursive=True)) + ["chip_smoke.py"]
+        recursive=True)) + ["chip_smoke.py", "tools/fuzz_torch.py"]
 
 
 def _imported(path: str) -> list[tuple[int, str]]:
@@ -51,6 +52,7 @@ def test_file_imports_no_jax_package(path):
 
 def test_scan_covers_the_port():
     assert "chip_smoke.py" in PORT_FILES
+    assert "tools/fuzz_torch.py" in PORT_FILES
     for module in ("pngloss_tpu_torch/codec/native.py",
                    "pngloss_tpu_torch/reference.py",
                    "pngloss_tpu_torch/website.py",
