@@ -8,8 +8,9 @@ Run from the root of the repository:
 Phases, each of which raises on failure:
   1. the card's name and power limit, torch / CUDA / nvcc versions;
   2. build the CUDA kernels from ``pngloss_tpu_torch/csrc``;
-  3. (3a) each kernel (the image kernel in its CLI, its adaptive and its
-     retry variant) against its plain PyTorch version, exact, on small
+  3. (3a) each kernel (the row kernel in its one-attempt and its retry
+     variant, the image kernel in its CLI, its adaptive and its retry
+     variant) against its plain PyTorch version, exact, on small
      shapes that reach every branch (bpp 1-4, strengths 0/3/19/255, bleed
      1/2/32767, transparency, ragged masks, rows failing the MSAD
      self-check) and at the edges of the kernels' design (the pre-pass:
@@ -20,31 +21,39 @@ Phases, each of which raises on failure:
      inside the next channel's band, transparent pixels at bpp 2 and 4,
      ragged widths, rows that retry from strength 32, 255, 2 and 1, an
      image whose every row fails; their plain versions run on the CPU);
-     the retry variant's give-up branch (no filter passes at strength 0)
-     and the adaptive variant's cleared ok, through the test-only
-     ``never_pass`` flag on images at strengths 0, 1, 2 and 40 beside
-     unflagged ones in one launch, at bpp 1-4: flagged images take s + 1
-     attempts a row, unflagged ones equal themselves run alone;
+     the row kernel's retry variant at strengths 0, 1, 2, 19, 40 and 255
+     from the zero state and a mid-image one, and on the EDGES cases' rows
+     0 and 1 (rows that retry from 32, 255, 2 and 1); the retry variants'
+     give-up branch (no filter passes at strength 0) and the adaptive
+     variant's cleared ok, through the test-only ``never_pass`` flag on
+     images at strengths 0, 1, 2 and 40 beside unflagged ones in one
+     launch, at bpp 1-4: flagged images take s + 1 attempts a row,
+     unflagged ones equal themselves run alone;
      (3b) at the main path's full shapes, each
      kernel's time beside its plain version's, and with ``--parent DIR``
      (a checkout of an earlier commit) the kernels of both trees timed in
-     turns, parent, this tree, this tree, parent;
+     turns, parent, this tree, this tree, parent (n/a for a kernel the
+     parent lacks);
   4. PNG bytes of ``compress_many(device="cuda")`` against the scalar
      reference model plus the host encoder, on small mixed images; and
      embedding mode (``optimize_for_average_filter``,
      ``optimize_rgba_batch(use_row_filters=False)``) against the scalar
      model, on small images one batch of which takes the per-row fallback;
   5. the main path: ``compress_many`` on 16 synthetic 512x512 RGB images
-     at -s 19 through the kernels (launch counters must rise), outputs
-     decode, a second run gives the same bytes, -s 0 is pixel-lossless;
+     at -s 19 through the kernels (launches: hist 1, the row kernel's
+     retry variant 1, image 1, a single row attempt 0), outputs decode, a
+     second run gives the same bytes, -s 0 is pixel-lossless;
   6. embedding mode at full size: ``optimize_rgba_batch(use_row_filters=
      False)`` on 16 512x512 RGB images, some of which pass the speculation
-     and some need the fallback (launch counters must rise: the row kernel
-     for the attempts of row 0 only, the retry variant once); the adaptive
-     image kernel against its plain version over all 511 rows, ok
-     included; the fallback's one launch of the retry variant against the
-     row kernel with the strength loop on the host (``row_step`` per row),
-     rows, filters and attempts per image, both timed, and the retry
+     and some need the fallback (launches: the row kernel's retry variant
+     twice, row 0 of the batch and of the fallback, its one-attempt variant
+     never, the image kernel's retry variant once); the adaptive image
+     kernel against its plain version over all 511 rows, ok included; the
+     fallback's one launch of the retry variant against the row kernel's
+     one-attempt variant with the strength loop on the host
+     (``ops/edges.rows_by_step``: ``strength_loop`` around ``row_attempt``
+     per row), rows, filters and attempts per image, both timed, and the
+     retry
      variant against its plain version over all 511 rows of the failed
      images; one retry launch over the whole batch timed beside
      speculation plus fallback; the output equals the host's per-row loop
@@ -65,15 +74,25 @@ Phases, each of which raises on failure:
      with 2 or more devices, the kernels on cuda:1 while cuda:0 is the
      current device;
  11. a device trace (``tracing.device_trace``) of one main-path run: the
-     trace holds the three kernels, as many launches of each as the
-     counters saw, and their summed device time;
+     trace holds the three kernels (the row kernel's retry variant), as
+     many launches of each as the counters saw, and their summed device
+     time;
  12. the random differential check (``tools/fuzz_torch.run_batch``) on
      fixed seeds: random images of up to 8 px a side through
      ``compress_many`` and embedding mode against the scalar model, and
      each kernel against its plain version on a random padded bucket per
-     batch, at bpp 1-4 and in both modes; any mismatch fails the run.
+     batch, at bpp 1-4 and in both modes; any mismatch fails the run;
+ 13. dispatch: a seeded ragged corpus (100 PNGs of 40-400 px a side, bpp
+     1-4, then four 512x512 RGB; 24 buckets or more) through
+     ``compress_many`` with the stream pool in longest-chain order, with a
+     pool of 1 in the parent's order and, with ``--parent``, the parent
+     tree's ``compress_many`` (a subprocess), in turns, then pools of 2, 4,
+     8 and 32: equal bytes, wall time, MP/s, stage seconds, buckets and
+     launches of each; and ``dispatch_buckets`` in CLI mode under
+     ``torch.cuda.set_sync_debug_mode("error")``, returning while a spin
+     queued ahead of it on every stream of the pool still runs.
 
-Each of phases 5-12 sets the launch counters to 0 just before the path it
+Each of phases 5-13 sets the launch counters to 0 just before the path it
 drives and reads them just after; a kernel of that path that was not
 launched fails the run.
 
@@ -108,12 +127,17 @@ import numpy as np
 
 SEED = 0
 N_IMAGES, SIDE, STRENGTH = 16, 512, 19
+# phase 3a: the row kernel's retry variant at these strengths, bpp 1-4
+ROW_STRENGTHS = (0, 1, 2, 19, 40, 255)
 KERNELS = (
     # name, source, TPU kernel it replaces
     ("hist", "pngloss_tpu_torch/csrc/hist.cu",
      "pngloss_tpu/ops/pallas_hist.py:38"),
     ("row", "pngloss_tpu_torch/csrc/row.cu",
      "pngloss_tpu/ops/pallas_row.py:194"),
+    ("row_retry", "pngloss_tpu_torch/csrc/row.cu",
+     "pngloss_tpu/ops/optimize_pallas.py:300 (row 0: the while_loop over the "
+     "strength around pallas_row.py:194)"),
     ("image", "pngloss_tpu_torch/csrc/image.cu",
      "pngloss_tpu/ops/pallas_image.py:107"),
     ("image_adaptive", "pngloss_tpu_torch/csrc/image.cu",
@@ -124,7 +148,7 @@ KERNELS = (
 )
 EMBED_SEED, EMBED_SMALL_SEED, EMBED_SMALL_STRENGTH = SEED + 5, 700, 45
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CLI_KERNELS = ("hist", "row", "image")
+CLI_KERNELS = ("hist", "row_retry", "image")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # 64 int32 lanes per SM per clock x 132 SMs x 1.98 GHz (boost clock)
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -175,11 +199,17 @@ MSAD_TRIAL_OPS = 6
 NO_LIBRARY = ("no PyTorch call computes any of them: the pre-pass needs five "
               "predictors' residuals before any bincount, and row and "
               "image are sequential recurrences")
-EMBED_KERNELS = ("hist", "row", "image_adaptive", "image_retry")
+EMBED_KERNELS = ("hist", "row_retry", "image_adaptive", "image_retry")
 # phase 12: batches (one seed each), end-to-end images a batch and their
 # largest side, and the largest kernel bucket in image-kernel channel steps
 FUZZ_SEED, FUZZ_BATCHES, FUZZ_E2E, FUZZ_MAX_PX = 1200, 40, 5, 8
 FUZZ_MAX_STEPS = 512
+# phase 13: the ragged corpus (images, sides in px, seed), the pool sizes
+# run once each beside the turns, and the device-side spin (cycles, ~2 s
+# at 1.98 GHz) that must outlast dispatch_buckets' return
+DISPATCH_N, DISPATCH_SIDES, DISPATCH_SEED = 100, (40, 400), SEED + 13
+DISPATCH_POOLS = (2, 4, 8, 32)
+DISPATCH_SPIN_CYCLES = 4_000_000_000
 
 
 def card_line() -> str:
@@ -260,18 +290,30 @@ def check_kernels(device) -> dict[str, int]:
     are 0)."""
     import torch
 
+    from pngloss_tpu_torch.convert import Carry
     from pngloss_tpu_torch.ops import hist, image, row
     from pngloss_tpu_torch.ops.edges import (
         EDGES,
         HIST_EDGES,
         edge_inputs,
         hist_edge_inputs,
+        row_retry_inputs,
     )
+    from pngloss_tpu_torch.ops.row import zero_carry
 
     rng = np.random.default_rng(SEED + 1)
+    rng6 = np.random.default_rng(SEED + 11)
     errs = dict.fromkeys((k[0] for k in KERNELS), 0)
     oks = set()
     retried = False
+    row_retried = set()       # strengths the row retry variant retried from
+
+    def row_retry_err(on_card, on_cpu):
+        got = row.row_retry(*on_card)
+        for s_k, n in zip(on_card[0].tolist(), got[2].tolist()):
+            if n > 1:
+                row_retried.add(s_k)
+        return _max_err(got, row.row_retry_ref(*on_cpu))
     for bpp in (1, 2, 3, 4):
         rows = rng.integers(0, 256, (3, 8, 9 * bpp)).astype(np.uint8)
         rows[1, :, :4] = 7                               # hot bins
@@ -290,6 +332,17 @@ def check_kernels(device) -> dict[str, int]:
                     st["hist"], st["ofreq"], w_real)
             errs["row"] = max(errs["row"], _max_err(
                 row.row_attempt(*args), row.row_attempt_ref(*args)))
+            # the row retry variant, from the zero state and from a
+            # mid-image one, on inputs of their own
+            st6 = row_state(rng6, len(ROW_STRENGTHS), 7, bpp, device)
+            s6 = _i32(ROW_STRENGTHS, device)
+            w6 = _i32([7, 5, 7, 2, 7, 6], device)
+            carry = Carry(st6["qprev"], row_state(rng6, 6, 7, bpp, device)[
+                "orig"], st6["e0"], st6["e1"], st6["hist"])
+            for c in (zero_carry(6, 7, bpp, device), carry):
+                args = (s6, bleed, st6["orig"], c, st6["ofreq"], w6)
+                errs["row_retry"] = max(errs["row_retry"],
+                                        row_retry_err(args, args))
 
             img = rng.integers(0, 256, (4, 6, 7 * bpp)).astype(np.uint8)
             if bpp % 2 == 0:
@@ -319,6 +372,10 @@ def check_kernels(device) -> dict[str, int]:
         row_cpu, image_cpu = edge_inputs(name, "cpu")
         errs["row"] = max(errs["row"], _max_err(
             row.row_attempt(*row_args), row.row_attempt_ref(*row_cpu)))
+        for on_card, on_cpu in zip(row_retry_inputs(image_args),
+                                   row_retry_inputs(image_cpu)):
+            errs["row_retry"] = max(errs["row_retry"],
+                                    row_retry_err(on_card, on_cpu))
         for key, adaptive in (("image", False), ("image_adaptive", True)):
             errs[key] = max(errs[key], _max_err(
                 image.image_rows(*image_args, adaptive=adaptive),
@@ -334,22 +391,49 @@ def check_kernels(device) -> dict[str, int]:
         raise AssertionError(f"small adaptive inputs gave ok {oks}, not both")
     if not retried:
         raise AssertionError("no row of the small inputs retried")
+    if not {1, 2, 32, 255} <= row_retried:
+        raise AssertionError(f"the row retry variant retried from strengths "
+                             f"{sorted(row_retried)} only")
     return errs
 
 
 def check_give_up(device) -> dict[str, int]:
-    """Phase 3a, the give-up branch: the adaptive and the retry variant
-    with the test-only never_pass flag on images at strengths 0, 1, 2 and
-    40 beside unflagged images, at bpp 1-4, against their plain versions
-    on the same card tensors. Flagged images must get ok 0 and take s + 1
-    attempts a row; unflagged ones must equal themselves run alone.
-    Returns the max abs error per variant."""
-    from pngloss_tpu_torch.ops import image
-    from pngloss_tpu_torch.ops.edges import GIVE_UP_H, give_up_inputs
+    """Phase 3a, the give-up branch: the image kernel's adaptive and retry
+    variants and the row kernel's retry variant (row 0 and row 1) with the
+    test-only never_pass flag on images at strengths 0, 1, 2 and 40 beside
+    unflagged images, at bpp 1-4, against their plain versions on the same
+    card tensors. Flagged images must get ok 0 and take s + 1 attempts a
+    row; unflagged ones must equal themselves run alone. Returns the max
+    abs error per variant."""
+    from pngloss_tpu_torch.convert import Carry
+    from pngloss_tpu_torch.ops import image, row
+    from pngloss_tpu_torch.ops.edges import (
+        GIVE_UP_H,
+        give_up_inputs,
+        row_retry_inputs,
+    )
 
-    errs = {"image_adaptive": 0, "image_retry": 0}
+    errs = {"image_adaptive": 0, "image_retry": 0, "row_retry": 0}
     for bpp in (1, 2, 3, 4):
         args, flags = give_up_inputs(bpp, device)
+        flagged = flags.bool()
+        for rargs in row_retry_inputs(args):
+            got = row.row_retry(*rargs, never_pass=flags)
+            errs["row_retry"] = max(errs["row_retry"], _max_err(
+                got, row.row_retry_ref(*rargs, never_pass=flags)))
+            if _max_err(got[2][flagged], rargs[0][flagged] + 1):
+                raise AssertionError(
+                    f"row retry give-up at bpp {bpp}: attempts "
+                    f"{got[2].tolist()} for never_pass {flags.tolist()}")
+            for k in (~flagged).nonzero().squeeze(1).tolist():
+                one = [Carry(*(t[k:k + 1] for t in a)) if isinstance(a, Carry)
+                       else a[k:k + 1] if hasattr(a, "shape") else a
+                       for a in rargs]
+                (q, *st), f, n = got
+                errs["row_retry"] = max(errs["row_retry"], _max_err(
+                    row.row_retry(*one),
+                    (tuple(t[k:k + 1] for t in (q, *st)), f[k:k + 1],
+                     n[k:k + 1])))
         retry = image.image_rows(*args, adaptive=True, retry=True,
                                  never_pass=flags)
         adaptive = image.image_rows(*args, adaptive=True, never_pass=flags)
@@ -358,7 +442,6 @@ def check_give_up(device) -> dict[str, int]:
         errs["image_adaptive"] = max(errs["image_adaptive"], _max_err(
             adaptive, image.image_rows_ref(*args, adaptive=True,
                                            never_pass=flags)))
-        flagged = flags.bool()
         want = (args[0][flagged] + 1) * (GIVE_UP_H - 1)
         if _max_err(retry[2][flagged], want) or bool(
                 adaptive[2][flagged].any()):
@@ -422,6 +505,7 @@ def time_kernels(device, log) -> dict[str, dict]:
     import torch
 
     from pngloss_tpu_torch.ops import hist, image, row
+    from pngloss_tpu_torch.ops.optimize import strength_loop
     from pngloss_tpu_torch.ops.optimize_gpu import row0
 
     s, w_real, h_real, rows = main_inputs(device)
@@ -443,6 +527,18 @@ def time_kernels(device, log) -> dict[str, dict]:
     entry("row", lambda: row.row_attempt(*args),
           lambda n: row.row_attempt_ref(*args, count=n),
           f"{b}x1x{w}x{bpp} (row 0)", 10)
+
+    def retry_ref(n):
+        # row_retry_ref, counting the band candidates of every attempt
+        return strength_loop(
+            lambda s_try: row.row_attempt_ref(s_try, 2, orig0, z, ze, ze, zh,
+                                              ofreq, w_real, count=n),
+            s, orig0, z, z, ze, ze, zh, w_real)
+
+    entry("row_retry", lambda: row.row0_retry(s, 2, orig0, ofreq, w_real),
+          retry_ref, f"{b}x1x{w}x{bpp} (row 0 with its strength loop)", 10)
+    out["row_retry"]["attempts"] = int(
+        row.row0_retry(s, 2, orig0, ofreq, w_real)[2].sum())
     c0, _ = row0(s, 2, orig0, ofreq, w_real)
     args = (s, 2, w_real, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
     entry("image", lambda: image.image_rows(*args),
@@ -471,6 +567,9 @@ def kernel_times(device) -> dict[str, float]:
     c0, _ = row0(s, 2, orig0, ofreq, w_real)
     img = (s, 2, w_real, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
     retry = {}
+    if hasattr(row, "RETRY_LAUNCHES"):       # an earlier tree has none
+        retry["row_retry"] = cuda_ms(lambda: row.row0_retry(
+            s, 2, orig0, ofreq, w_real), 10)
     if hasattr(image, "RETRY_LAUNCHES"):     # an earlier tree has none
         # no row of these images fails: the retry variant's time beside
         # the adaptive variant's on the same work
@@ -531,6 +630,9 @@ def compare_parent(device, parent: str, log) -> dict:
         turns.setdefault(who, []).append(times)
         log(f"  turn {k + 1} ({who}): " + ", ".join(
             f"{n} {t:.3f} ms" for n, t in times.items()))
+    for name in turns["this"][0]:
+        if name not in turns["parent"][0]:
+            log(f"  {name}: n/a in the parent (it has no such kernel)")
     log(f"  SM clock after the turns (now, max): {sm_clocks()}")
     return turns
 
@@ -559,7 +661,8 @@ def bounds(name: str, b: int, h: int, w: int, bpp: int,
     rate. ``candidates``: the band candidates this run's data scans (the
     plain version's count), for row and image. ``attempts``: the row
     attempts this run's data takes, summed over the images, for the retry
-    variant: each is one row of the adaptive variant's work."""
+    variants (the image kernel's and the row kernel's): each is one row of
+    the adaptive variant's work."""
     px, we = b * w * bpp, b * (w + 5) * 4
     if name == "hist":
         nbytes = b * h * w * bpp + 8 * b + 4 * b * 5 * 256
@@ -568,6 +671,15 @@ def bounds(name: str, b: int, h: int, w: int, bpp: int,
         nbytes = (4 * (2 * px + 2 * we + 256 * b + 5 * 256 * b + 2 * b)
                   + 4 * 5 * (px + 256 * b + 2 * we))
         ops = b * w * pixel_ops(bpp, False, False)
+        ops += CANDIDATE_OPS * candidates
+    elif name == "row_retry":
+        # in: s, w_real, orig, qprev, oprev, e0, e1, hist, ofreq; out: the
+        # winner's row, histogram and dither rows, its filter (8 bytes),
+        # the attempts; each attempt is one row of the adaptive count
+        nbytes = (4 * (2 * b + 3 * px + 2 * we + 256 * b + 5 * 256 * b)
+                  + 4 * (px + 256 * b + 2 * we + b) + 8 * b)
+        ops = attempts * w * pixel_ops(bpp, True, True)
+        ops += attempts * 5 * (256 * COST_BIN_OPS + COST_ROW_OPS)
         ops += CANDIDATE_OPS * candidates
     else:
         adaptive = name != "image"
@@ -708,7 +820,6 @@ def run_embedding(device, card: str, log):
     from pngloss_tpu_torch.ops.edges import rows_by_step
     from pngloss_tpu_torch.ops.optimize_gpu import (
         optimize_rows,
-        row0,
         row_step,
         zero_carry,
     )
@@ -759,10 +870,12 @@ def run_embedding(device, card: str, log):
     end.record()
     end.synchronize()
     spec_ms, fall_ms = start.elapsed_time(mid), mid.elapsed_time(end)
-    fall_counts = read_counts("[6] the fallback", ("row", "image_retry"))
+    fall_counts = read_counts("[6] the fallback", ("row_retry",
+                                                   "image_retry"))
 
-    # the fallback with the strength loop on the host: the row kernel once
-    # per attempt. Rows and filters must agree (attempts: below).
+    # the fallback with the strength loop on the host: the row kernel's
+    # one-attempt variant once per attempt, the cost and the self-check in
+    # PyTorch. Rows and filters must agree (attempts: below).
     reset_counts()
     t0 = time.perf_counter()
     qh, fh, tries_host = rows_by_step(*fall)
@@ -771,26 +884,21 @@ def run_embedding(device, card: str, log):
     host_launches = read_counts("[6] the host loop", ("row",))["row"]
     err = _max_err((qk, fk), (qh, fh))
     if err:
-        raise AssertionError(f"the retry launch != the loop over row_step on "
+        raise AssertionError(f"the retry launch != the host loop on "
                              f"the failed images: max abs err {err}")
 
-    # the row kernel runs the attempts of row 0 only: the batch's and the
-    # fallback's; the retry variant once per fallback
-    reset_counts()
-    row0(s, 2, orig[:, 0].contiguous(), ofreq, wr)
-    first_all = read_counts("[6] row 0", ("row",))["row"]
-    reset_counts()
+    # row 0 is one launch of the row kernel's retry variant, the batch's
+    # and the fallback's; the image kernel's retry variant once per
+    # fallback; never a single row attempt
     cb, _, first_tries = row_step(
         fall[0], 2, fall[2][:, 0].contiguous(),
         zero_carry(len(bad), SIDE, bpp, device), fall[3], fall[4])
-    first_bad = read_counts("[6] row 0 of the fallback", ("row",))["row"]
-    if (fall_counts["row"], fall_counts["image_retry"]) != (first_bad, 1):
-        raise AssertionError(f"the fallback launched {fall_counts}; row 0 "
-                             f"takes {first_bad} attempts")
-    if (launches["row"], launches["image_retry"]) != (first_all + first_bad,
-                                                      1):
-        raise AssertionError(f"the embedding call launched {launches}; row 0 "
-                             f"takes {first_all} + {first_bad} attempts")
+    if (fall_counts["row"], fall_counts["row_retry"],
+            fall_counts["image_retry"]) != (0, 1, 1):
+        raise AssertionError(f"the fallback launched {fall_counts}")
+    if (launches["row"], launches["row_retry"],
+            launches["image_retry"]) != (0, 2, 1):
+        raise AssertionError(f"the embedding call launched {launches}")
 
     # the retry variant as the fallback launches it (all 511 rows of the
     # failed images, from row 0's state) against its plain version, which
@@ -809,17 +917,17 @@ def run_embedding(device, card: str, log):
     err = max(_max_err((qr2, fr2), (qh[:, 1:], fh[:, 1:])),
               _max_err(tries, tries_host))
     if err:
-        raise AssertionError(f"the retry variant != the loop over row_step "
+        raise AssertionError(f"the retry variant != the host loop "
                              f"on the failed images: max abs err {err}")
     retry.update(b=len(bad), attempts=int(later_tries.sum()),
                  fallback_ms=fall_ms, fallback_attempts=tries.tolist(),
                  host_loop_ms=host_s * 1e3)
     tries = tries.tolist()
     log(f"  fallback, {len(bad)} images x {SIDE} rows: one retry launch "
-        f"{fall_ms:.3f} ms (row 0 by row_step included), attempts per image "
-        f"{tries}; the loop over row_step {host_s * 1e3:.3f} ms, "
-        f"{host_launches} row-kernel launches; equal: rows, filters, "
-        "attempts")
+        f"{fall_ms:.3f} ms (row 0 by row_step, one launch, included), "
+        f"attempts per image {tries}; the host loop (strength_loop around "
+        f"row_attempt) {host_s * 1e3:.3f} ms, {host_launches} row-kernel "
+        "launches; equal: rows, filters, attempts")
 
     # the per-row path on every image, by the host loop: the speculation
     # on the ok images, the entry point's output on all, and one retry
@@ -833,8 +941,8 @@ def run_embedding(device, card: str, log):
     whole_ms = start.elapsed_time(end)
     err = _max_err(whole, (qp, fp))
     if err:
-        raise AssertionError(f"one retry launch over the batch != the loop "
-                             f"over row_step: max abs err {err}")
+        raise AssertionError(f"one retry launch over the batch != the host "
+                             f"loop: max abs err {err}")
     log(f"  the per-row path on all {b} images (row 0, then one retry "
         f"launch): {whole_ms:.3f} ms against speculation + fallback "
         f"{spec_ms + fall_ms:.3f} ms; attempts per image "
@@ -880,27 +988,27 @@ def run_embedding(device, card: str, log):
 def run_main_path(device, card: str, log):
     """Phase 5: the main path at full size. Returns the kernel launch
     counts of its first run, its input PNGs and its output bytes."""
+    import torch
+
     from pngloss_tpu_torch import tracing
     from pngloss_tpu_torch.codec import decode, encode
-    from pngloss_tpu_torch.ops import hist, image, row
     from pngloss_tpu_torch.pipeline import compress_many
 
     rgba = synthetic_rgb(np.random.default_rng(SEED + 4), N_IMAGES, SIDE, SIDE)
     pngs = [encode(im, row_filters=None) for im in rgba]
-    mods = {"hist": hist, "row": row, "image": image}
-    import torch
-
     torch.cuda.synchronize()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    reset_counts()
     tracing.snapshot(reset=True)
     t0 = time.perf_counter()
     first = compress_many(pngs, STRENGTH, device=device)
     wall = time.perf_counter() - t0
-    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    launches = read_counts("[5] compress_many", CLI_KERNELS)
     stages = tracing.snapshot(reset=True)
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    # one bucket: the pre-pass, row 0 with its strength loop and the image
+    # kernel once each; no single row attempt
+    if {k: launches[k] for k in ("hist", "row_retry", "image", "row")} != {
+            "hist": 1, "row_retry": 1, "image": 1, "row": 0}:
+        raise AssertionError(f"the main path launched {launches}")
     t0 = time.perf_counter()
     second = compress_many(pngs, STRENGTH, device=device)
     wall2 = time.perf_counter() - t0
@@ -930,7 +1038,7 @@ def reset_counts() -> None:
     """Every kernel wrapper's launch counter to 0."""
     from pngloss_tpu_torch.ops import hist, image, row
 
-    hist.LAUNCHES = row.LAUNCHES = image.LAUNCHES = 0
+    hist.LAUNCHES = row.LAUNCHES = row.RETRY_LAUNCHES = image.LAUNCHES = 0
     image.ADAPTIVE_LAUNCHES = image.RETRY_LAUNCHES = 0
 
 
@@ -939,7 +1047,7 @@ def read_counts(path: str, need) -> dict[str, int]:
     from pngloss_tpu_torch.ops import hist, image, row
 
     counts = {"hist": hist.LAUNCHES, "row": row.LAUNCHES,
-              "image": image.LAUNCHES,
+              "row_retry": row.RETRY_LAUNCHES, "image": image.LAUNCHES,
               "image_adaptive": image.ADAPTIVE_LAUNCHES,
               "image_retry": image.RETRY_LAUNCHES}
     missing = [k for k in need if not counts[k]]
@@ -1320,10 +1428,12 @@ def run_tracing(device, pngs, want, log) -> dict[str, int]:
         with open(os.path.join(d, name)) as fh:
             events = json.load(fh)["traceEvents"]
     # "hist_kernel(...)", "void (anonymous namespace)::image_kernel<3,
-    # false>(...)": the kernels of csrc/ by their function names
-    pattern = re.compile(r"(?:^|[ :])(hist|row|image)_kernel[<(]")
-    us = dict.fromkeys(CLI_KERNELS, 0.0)
-    seen = dict.fromkeys(CLI_KERNELS, 0)
+    # false, false>(...)": the kernels of csrc/ by their function names;
+    # row_kernel<bpp, true> is the row kernel's retry variant
+    pattern = re.compile(r"(?:^|[ :])(hist|row|image)_kernel(<[^>]*>)?\(")
+    names = ("hist", "row", "row_retry", "image")
+    us = dict.fromkeys(names, 0.0)
+    seen = dict.fromkeys(names, 0)
     busy = 0.0
     for e in events:
         if e.get("cat") != "kernel":
@@ -1331,9 +1441,12 @@ def run_tracing(device, pngs, want, log) -> dict[str, int]:
         busy += e["dur"]
         m = pattern.search(e.get("name", ""))
         if m:
-            us[m.group(1)] += e["dur"]
-            seen[m.group(1)] += 1
-    if seen != {k: counts[k] for k in CLI_KERNELS}:
+            key = m.group(1)
+            if key == "row" and (m.group(2) or "").endswith("true>"):
+                key = "row_retry"
+            us[key] += e["dur"]
+            seen[key] += 1
+    if seen != {k: counts[k] for k in names}:
         names = sorted({e.get("name", "")[:80] for e in events
                         if e.get("cat") == "kernel"})
         raise AssertionError(f"trace holds {seen} kernel launches, the "
@@ -1390,6 +1503,226 @@ def run_fuzz(device, log) -> dict[str, int]:
         f"{summary['kernel_batches']} kernel batches), {seconds:.1f} s, "
         f"{summary['mismatches']} mismatches")
     return counts
+
+
+def dispatch_corpus(rng) -> list[bytes]:
+    """Phase 13's ragged corpus: DISPATCH_N PNGs with sides of
+    DISPATCH_SIDES px, in turn gray, gray+alpha, RGB and RGBA (bpp 1-4),
+    then four 512x512 RGB."""
+    from pngloss_tpu_torch.codec import encode
+
+    pngs = []
+    for k in range(DISPATCH_N):
+        h, w = (int(v) for v in rng.integers(DISPATCH_SIDES[0],
+                                             DISPATCH_SIDES[1] + 1, 2))
+        rgba = synthetic_rgb(rng, 1, h, w)[0]
+        if k % 4 < 2:                               # gray, gray+alpha
+            rgba[..., 0] = rgba[..., 2] = rgba[..., 1]
+        if k % 2:                                   # gray+alpha, RGBA
+            rgba[::3, ::2, 3] = 0
+            rgba[1::3, 1::2, 3] = 128
+        pngs.append(encode(rgba, row_filters=None))
+    return pngs + [encode(im, row_filters=None)
+                   for im in synthetic_rgb(rng, 4, SIDE, SIDE)]
+
+
+PARENT_DISPATCH = r"""
+import hashlib, json, os, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from pngloss_tpu_torch import tracing
+from pngloss_tpu_torch.ops import hist, image, row
+from pngloss_tpu_torch.pipeline import compress_many
+d = sys.argv[2]
+pngs = [open(os.path.join(d, n), "rb").read() for n in sorted(os.listdir(d))]
+compress_many(pngs[:8], int(sys.argv[3]), device="cuda")     # warm-up
+torch.cuda.synchronize()
+hist.LAUNCHES = row.LAUNCHES = image.LAUNCHES = 0
+tracing.snapshot(reset=True)
+t0 = time.perf_counter()
+out = compress_many(pngs, int(sys.argv[3]), device="cuda")
+wall = time.perf_counter() - t0
+print(json.dumps({"wall": wall, "stages": tracing.snapshot(reset=True),
+                  "launches": {"hist": hist.LAUNCHES, "row": row.LAUNCHES,
+                               "image": image.LAUNCHES},
+                  "sha256": [hashlib.sha256(r.unwrap()).hexdigest()
+                             for r in out]}))
+"""
+
+
+def _stage_sums(stages: dict) -> dict:
+    """Stage seconds summed over threads, the buckets' dispatches as one
+    (device_dispatch) beside the number of buckets."""
+    out = {"buckets": sum(v["calls"] for k, v in stages.items()
+                          if k.startswith("device_dispatch_"))}
+    for name in ("host_decode", "device_dispatch", "device_fetch",
+                 "host_encode"):
+        out[name] = sum(v["seconds"] for k, v in stages.items()
+                        if k == name or k.startswith(name + "_"))
+    return out
+
+
+def chain_model(keys, image_ms: float, pools) -> dict:
+    """The device time the buckets ``keys`` (h_pad, wb_pad, bpp) would
+    take if each ran as long as its image kernel's chain, (h_pad - 1) x
+    wb_pad channel steps at the main batch's measured rate (``image_ms``
+    for (SIDE - 1) x SIDE x 3 steps), dispatched longest chain first
+    round-robin over a pool of P streams that all run side by side: for
+    each P, the largest sum of one stream's chains, in ms."""
+    from pngloss_tpu_torch.pipeline import dispatch_order
+
+    per_step = image_ms / ((SIDE - 1) * SIDE * 3)
+    chains = [(h - 1) * wb * per_step for h, wb, _ in dispatch_order(keys)]
+    out = {}
+    for pool in pools:
+        sums = [0.0] * pool
+        for k, c in enumerate(chains):
+            sums[k % pool] += c
+        out[pool] = max(sums)
+    return out
+
+
+def run_dispatch(device, parent, card: str, image_ms: float, log) -> dict:
+    """Phase 13: the pipeline's dispatch over a ragged corpus
+    (``dispatch_corpus``). ``compress_many`` with the stream pool in
+    longest-chain order, with a pool of 1 in the order the buckets first
+    appear (the parent's), and with --parent the parent tree's
+    ``compress_many`` in a subprocess, in turns; all give the same bytes.
+    Then pools of other sizes once each, and ``dispatch_buckets`` in CLI
+    mode under ``torch.cuda.set_sync_debug_mode("error")``, behind a
+    device-side spin on every stream of the pool that must still be
+    running when it returns. Returns the launch counts of the pool's
+    first timed run."""
+    import hashlib
+
+    import torch
+
+    from pngloss_tpu_torch import pipeline, tracing
+    from pngloss_tpu_torch.parallel import mesh
+
+    pngs = dispatch_corpus(np.random.default_rng(DISPATCH_SEED))
+    mp = 0.0
+    for png in pngs:
+        w, h = (int.from_bytes(png[16 + 4 * i:20 + 4 * i], "big")
+                for i in (0, 1))
+        mp += w * h / 1e6
+    streams, order = mesh.STREAMS, pipeline.dispatch_order
+
+    def this(pool: int, parents_order: bool) -> dict:
+        mesh.STREAMS = pool
+        pipeline.dispatch_order = list if parents_order else order
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            tracing.snapshot(reset=True)
+            t0 = time.perf_counter()
+            out = pipeline.compress_many(pngs, STRENGTH, device=device)
+            wall = time.perf_counter() - t0
+            launches = read_counts("[13] compress_many", CLI_KERNELS)
+            stages = _stage_sums(tracing.snapshot(reset=True))
+        finally:
+            mesh.STREAMS, pipeline.dispatch_order = streams, order
+        return {"wall": wall, "stages": stages, "launches": launches,
+                "sha256": [hashlib.sha256(r.unwrap()).hexdigest()
+                           for r in out]}
+
+    def parent_run(d: str) -> dict:
+        proc = subprocess.run(
+            [sys.executable, "-c", PARENT_DISPATCH, os.path.abspath(parent),
+             d, str(STRENGTH)], cwd=parent, capture_output=True, text=True,
+            timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"the parent's compress_many failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec["stages"] = _stage_sums(rec["stages"])
+        return rec
+
+    def show(label: str, rec: dict) -> None:
+        st = rec["stages"]
+        log(f"  {label}: {rec['wall']:.3f} s ({mp / rec['wall']:.3f} MP/s); "
+            f"{st['buckets']} buckets; stages (s, summed over threads) "
+            f"host_decode {st['host_decode']:.6f} device_dispatch "
+            f"{st['device_dispatch']:.6f} device_fetch "
+            f"{st['device_fetch']:.6f} host_encode {st['host_encode']:.6f}; "
+            f"launches {rec['launches']}")
+
+    log(f"  corpus: {len(pngs)} PNGs, {mp:.6f} MP (sides "
+        f"{DISPATCH_SIDES[0]}-{DISPATCH_SIDES[1]} px, bpp 1-4, seed "
+        f"{DISPATCH_SEED}, then 4 x {SIDE}x{SIDE} RGB), -s {STRENGTH}, on "
+        f"{card}; pool {streams} streams")
+    this(streams, False)                                   # warm-up
+    pool_label = f"pool of {streams}, longest chain first"
+    one_label = "pool of 1, the parent's order"
+    turns = [pool_label, one_label, "parent", "parent", one_label, pool_label]
+    if not parent:
+        turns = [t for t in turns if t != "parent"]
+    runs: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        if parent:
+            for k, png in enumerate(pngs):
+                with open(os.path.join(d, f"{k:04d}.png"), "wb") as fh:
+                    fh.write(png)
+        for k, label in enumerate(turns):
+            rec = (parent_run(d) if label == "parent"
+                   else this(1, True) if label == one_label
+                   else this(streams, False))
+            show(f"turn {k + 1}, {label}", rec)
+            runs.setdefault(label, []).append(rec)
+    for pool in DISPATCH_POOLS:
+        rec = this(pool, False)
+        show(f"pool of {pool}, longest chain first", rec)
+        runs.setdefault(f"pool of {pool}", []).append(rec)
+    want = runs[pool_label][0]["sha256"]
+    for label, recs in runs.items():
+        for rec in recs:
+            if rec["sha256"] != want:
+                raise AssertionError(f"[13] {label}: bytes differ from the "
+                                     "pool's")
+    if runs[pool_label][0]["stages"]["buckets"] < 24:
+        raise AssertionError(f"[13] only {runs[pool_label][0]['stages']} "
+                             "buckets")
+
+    # dispatch_buckets in CLI mode: no host sync, and it returns while a
+    # spin queued ahead of its work on every stream is still running
+    works, bpps = [], []
+    for png in pngs:
+        work, bpp = pipeline.reduce_colorspace(pipeline.codec.decode(png).rgba)
+        works.append(work)
+        bpps.append(bpp)
+    keys = sorted({(pipeline.pad_dim(w.shape[0]),
+                    pipeline.pad_dim(w.shape[1] // b) * b, b)
+                   for w, b in zip(works, bpps)})
+    model = chain_model(keys, image_ms, sorted({1, streams, *DISPATCH_POOLS}))
+    log("  device time if each bucket took its chain (image kernel "
+        f"{image_ms:.3f} ms per {SIDE - 1} x {SIDE} x 3 steps), P streams "
+        "side by side: " + ", ".join(f"P={k} {v:.1f} ms"
+                                     for k, v in model.items()))
+    spins = []
+    for slot in range(mesh.STREAMS):
+        with mesh.bucket_stream(device, slot):
+            torch.cuda._sleep(DISPATCH_SPIN_CYCLES)
+            spins.append(torch.cuda.Event())
+            spins[-1].record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        pending = pipeline.dispatch_buckets(works, bpps, STRENGTH,
+                                            device=device)
+        queued = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    running = sum(not e.query() for e in spins)
+    if running != len(spins):
+        raise AssertionError(f"[13] dispatch_buckets returned after "
+                             f"{len(spins) - running} of the spins ended")
+    for p in pending:
+        pipeline.collect_bucket(p)
+    log(f"  dispatch_buckets under set_sync_debug_mode('error'): "
+        f"{len(pending)} buckets queued in {queued * 1e3:.3f} ms behind a "
+        f"{DISPATCH_SPIN_CYCLES} cycle spin on each of the {len(spins)} "
+        f"streams, all still running at its return")
+    return runs[pool_label][0]["launches"]
 
 
 def main(argv=None) -> int:
@@ -1457,7 +1790,9 @@ def main(argv=None) -> int:
             ("[9] website", lambda: run_website(device, pngs, want, log)),
             ("[10] mesh", lambda: run_mesh(device, pngs, want, embed, log)),
             ("[11] tracing", lambda: run_tracing(device, pngs, want, log)),
-            ("[12] fuzz", lambda: run_fuzz(device, log))):
+            ("[12] fuzz", lambda: run_fuzz(device, log)),
+            ("[13] dispatch", lambda: run_dispatch(
+                device, args.parent, card, timing["image"]["ms"], log))):
         log(label)
         t0 = time.perf_counter()
         phase()
@@ -1482,8 +1817,9 @@ def main(argv=None) -> int:
             f"{t['ms']:10.3f} ms  bound {bound_ms:.6f} ms ({bound_by}), "
             f"{bound_ms / t['ms']:.2e} of the kernel's time; "
             f"{t['candidates']} band candidates; library: none")
-    log(f"  row launches per embedding call (phase 6): "
-        f"{embed_launches['row']}")
+    log(f"  row launches per embedding call (phase 6): one attempt "
+        f"{embed_launches['row']}, retry variant "
+        f"{embed_launches['row_retry']}")
     log(f"  library calls: {NO_LIBRARY}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

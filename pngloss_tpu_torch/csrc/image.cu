@@ -62,43 +62,6 @@
 
 namespace {
 
-// Does filter f pass libpng's MSAD heuristic on its candidate row q
-// (adaptive_filter_for_rows, optimize_state.c:492-562)? The 5 trial sums
-// of |residual| (as a signed byte) over the real columns, lane-strided,
-// then summed over the warp; ties go to the earliest trial. Every lane of
-// the warp must call it; all get the answer.
-template <int BPP>
-__device__ bool msad_passes(int f, int lane, int wr,
-                            const int* __restrict__ q,
-                            const int* __restrict__ qprev) {
-  int sums[plk::kFilters] = {0, 0, 0, 0, 0};
-  for (int x = lane; x < wr; x += plk::kWarp) {
-#pragma unroll
-    for (int c = 0; c < BPP; ++c) {
-      const int i = x * BPP + c;
-      const int v = q[i];
-      const int above = qprev[i];
-      const int left = x ? q[i - BPP] : 0;
-      const int diag = x ? qprev[i - BPP] : 0;
-#pragma unroll
-      for (int t = 0; t < plk::kFilters; ++t) {
-        const int r = (v - plk::predict(t, above, diag, left)) & 0xFF;
-        sums[t] += r < 128 ? r : 256 - r;
-      }
-    }
-  }
-  int best = 0, best_sum = 0;
-#pragma unroll
-  for (int t = 0; t < plk::kFilters; ++t) {
-    const int total = __reduce_add_sync(plk::kFull, sums[t]);
-    if (t == 0 || total < best_sum) {
-      best = t;
-      best_sum = total;
-    }
-  }
-  return best == f;
-}
-
 template <int BPP, bool ADAPTIVE, bool RETRY>
 __global__ void __launch_bounds__(plk::kFilters * plk::kWarp)
 image_kernel(const int* __restrict__ s, int bleed,
@@ -161,16 +124,7 @@ image_kernel(const int* __restrict__ s, int bleed,
           f, lane, sr, bandr, bl, wr, W, img + y * wb, img + (y - 1) * wb,
           qprev, e0, e1, hs, qrow, e0n5 + mine * we, e1n5 + mine * we,
           y >= 2 ? my_q + (y - 2) * wb : nullptr);
-      long long bits = 0;
-#pragma unroll
-      for (int j = 0; j < plk::kSlots; ++j) {
-        const int fr = hs.h[j];
-        if (fr > 0)
-          bits += static_cast<long long>(fr - hw[lane + plk::kWarp * j]) *
-                  (33 + __clz(fr));
-      }
-      for (int off = plk::kWarp / 2; off > 0; off /= 2)
-        bits += __shfl_xor_sync(plk::kFull, bits, off);
+      const long long bits = plk::row_bits(hs, hw, lane);
       bool pass = true;
       if constexpr (ADAPTIVE) {
         // every lane stored the same values of the candidate row, and
@@ -178,7 +132,7 @@ image_kernel(const int* __restrict__ s, int bleed,
         // never_pass (test-only, null in production) is read here, per
         // attempt and off the chain: held in a register across the rows it
         // cost the retry variant 1.6% through a spill
-        pass = msad_passes<BPP>(f, lane, wr, qrow, qprev) &&
+        pass = plk::msad_passes<BPP>(f, lane, wr, qrow, qprev) &&
                !(never_pass && never_pass[b]);
       }
       if (lane == 0) {

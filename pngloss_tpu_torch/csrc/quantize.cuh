@@ -1,7 +1,8 @@
 // Device functions shared by the row kernel (row.cu) and the image kernel
 // (image.cu): the per-pixel predictor, the band of candidate symbols, the
-// warp-wide symbol selection, and the pixel loop of one row under one
-// filter with Sierra-lite diffusion.
+// warp-wide symbol selection, the pixel loop of one row under one filter
+// with Sierra-lite diffusion, and, for the variants that pick a winner, the
+// row cost's histogram part and libpng's MSAD self-check.
 //
 // One warp quantizes one (image, filter) row. The pixel recurrence is
 // sequential, so every lane of the warp runs the same scalar chain in
@@ -467,6 +468,63 @@ __device__ __forceinline__ long long quantize_row_warp(
   }
   __syncwarp();
   return err;
+}
+
+// Does filter f pass libpng's MSAD heuristic on its candidate row q
+// (adaptive_filter_for_rows, optimize_state.c:492-562)? The 5 trial sums
+// of |residual| (as a signed byte) over the real columns, lane-strided,
+// then summed over the warp; ties go to the earliest trial. Every lane of
+// the warp must call it; all get the answer.
+template <int BPP>
+__device__ bool msad_passes(int f, int lane, int wr,
+                            const int* __restrict__ q,
+                            const int* __restrict__ qprev) {
+  int sums[kFilters] = {0, 0, 0, 0, 0};
+  for (int x = lane; x < wr; x += kWarp) {
+#pragma unroll
+    for (int c = 0; c < BPP; ++c) {
+      const int i = x * BPP + c;
+      const int v = q[i];
+      const int above = qprev[i];
+      const int left = x ? q[i - BPP] : 0;
+      const int diag = x ? qprev[i - BPP] : 0;
+#pragma unroll
+      for (int t = 0; t < kFilters; ++t) {
+        const int r = (v - predict(t, above, diag, left)) & 0xFF;
+        sums[t] += r < 128 ? r : 256 - r;
+      }
+    }
+  }
+  int best = 0, best_sum = 0;
+#pragma unroll
+  for (int t = 0; t < kFilters; ++t) {
+    const int total = __reduce_add_sync(kFull, sums[t]);
+    if (t == 0 || total < best_sum) {
+      best = t;
+      best_sum = total;
+    }
+  }
+  return best == f;
+}
+
+// The histogram part of one candidate's row cost (optimize_state.c:314-361):
+// sum over the symbols t of (hist_out - hist_in)[t] * (33 + clz(hist_out[t]))
+// = 65 - bitlength, from the warp's histogram after the row (hs) and the
+// histogram at row start (hw, entries lane + 32j as in hs), summed over the
+// warp in 64 bits. Every lane of the warp must call it; all get the sum.
+__device__ __forceinline__ long long row_bits(const Hist& hs, const int* hw,
+                                              int lane) {
+  long long bits = 0;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int fr = hs.h[j];
+    if (fr > 0)
+      bits += static_cast<long long>(fr - hw[lane + kWarp * j]) *
+              (33 + __clz(fr));
+  }
+  for (int off = kWarp / 2; off > 0; off /= 2)
+    bits += __shfl_xor_sync(kFull, bits, off);
+  return bits;
 }
 
 // quantize_row_warp with the selection the block's strength needs: every

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pngloss_tpu_torch.ops.optimize_gpu import optimize_batch
+from pngloss_tpu_torch.ops.optimize_gpu import optimize_batch, to_device
 
 
 class CudaUnavailableError(RuntimeError):
@@ -41,19 +41,20 @@ def optimize_batch_auto(rows, strength, bleed: int = 2, *, bpp: int, device,
     (B,) values. w_real/h_real: per-image real sizes of padded planes
     (ragged batching). use_row_filters=False is embedding mode: every row
     must pass libpng's MSAD self-check. Returns ((B, H, W*bpp) uint8,
-    (B, H) int8) tensors on ``device``.
+    (B, H) int8) tensors on ``device``. Host arrays go to a CUDA device
+    from pinned memory without blocking; in CLI mode the call only queues
+    work on the current stream and returns without waiting for the card.
     """
     device = resolve_device(device)
-    if isinstance(rows, np.ndarray):
-        rows = torch.from_numpy(np.ascontiguousarray(rows))
-    rows = rows.to(device)
+    rows = to_device(rows, device)
     if rows.dtype != torch.uint8 or rows.dim() != 3:
         raise ValueError("rows must be a (B, H, W*bpp) uint8 array")
 
     def as_int32(v):
-        return None if v is None else torch.as_tensor(
-            np.asarray(v, np.int32) if not torch.is_tensor(v) else v,
-            dtype=torch.int32, device=device)
+        if v is None:
+            return None
+        return to_device(v if torch.is_tensor(v) else np.asarray(v, np.int32),
+                         device).to(torch.int32)
 
     return optimize_batch(rows, as_int32(strength), int(bleed), bpp=bpp,
                           use_row_filters=use_row_filters,

@@ -23,13 +23,17 @@ pitches from 1 byte to 16396, bases 1 and 4 bytes off a 16-byte boundary,
 a constant image (one hot bin per filter), real sizes of 1 x 1 and of the
 whole plane, 1 image and 33.
 
-``give_up_inputs`` reaches the retry variant's give-up branch (no filter
+``row_retry_inputs`` gives the row kernel's retry variant the same cases:
+row 0 from the zero state and row 1 from the carried state.
+
+``give_up_inputs`` reaches the retry variants' give-up branch (no filter
 passes at strength 0) through the test-only ``never_pass`` flag: flagged
 images at strengths 0, 1, 2 and 40 (which starts in the wide-band loop and
 falls below it) beside unflagged ones, in one launch.
 
 ``rows_by_step`` is what the card checks hold ``optimize_gpu.optimize_rows``
-to: the same per-row path with the strength loop of every row on the host.
+to: the same per-row path with the strength loop of every row on the host,
+around the row kernel's one-attempt variant.
 """
 
 from __future__ import annotations
@@ -37,7 +41,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pngloss_tpu_torch.ops import optimize_gpu
+from pngloss_tpu_torch.convert import Carry
+from pngloss_tpu_torch.ops import row
+from pngloss_tpu_torch.ops.optimize import strength_loop
 
 # name: (B, W, bpp, strengths, bleed, dither bound, equal channels[, rows])
 ROWS = 3
@@ -100,6 +106,21 @@ def edge_inputs(name: str, device):
              st["hist"], st["ofreq"], wr),
             (s, bleed, wr, st["ofreq"], rows, st["qprev"], st["e0"],
              st["e1"], st["hist"]))
+
+
+def row_retry_inputs(image_args):
+    """The row kernel's retry variant's arguments (s, bleed, orow, carry,
+    ofreq, w_real) from image-kernel arguments (an EDGES or GIVE_UP case):
+    row 0 from the zero state, and row 1 from the case's carried state,
+    the originals of row 0 as the previous row's (the EDGES ``retry-``
+    cases' rows 1 retry from strength 32, 255, 2 and 1)."""
+    s, bleed, wr, ofreq, rows, qprev, e0, e1, hist = image_args
+    b, h, wb = rows.shape
+    w, bpp = qprev.shape[1], qprev.shape[2]
+    orig = rows.view(b, h, w, bpp).to(torch.int32)
+    o0, o1 = orig[:, 0].contiguous(), orig[:, 1].contiguous()
+    return [(s, bleed, o0, row.zero_carry(b, w, bpp, rows.device), ofreq, wr),
+            (s, bleed, o1, Carry(qprev, o0, e0, e1, hist), ofreq, wr)]
 
 
 # per image: strength, never_pass flag, real width (of GIVE_UP_W)
@@ -174,17 +195,28 @@ def hist_edge_inputs(name: str, bpp: int, device):
 
 def rows_by_step(s, bleed: int, orig, ofreq, w_real):
     """``optimize_gpu.optimize_rows`` from row 0 with the strength loop of
-    every row on the host: ``row_step`` per row, one launch of the row
-    kernel and one host sync per attempt. Returns the winner rows, their
+    every row on the host: ``strength_loop`` around ``row.row_attempt``
+    per row, one launch of the row kernel's one-attempt variant and one
+    host sync per attempt, the row cost and the self-check in PyTorch. It
+    shares no code with the two retry kernels (the row kernel's and the
+    image kernel's), so it holds both. Returns the winner rows, their
     filter ids (B, R) int64 and the attempts each image took (B,) int32."""
     b, r, w, bpp = orig.shape
-    carry = optimize_gpu.zero_carry(b, w, bpp, orig.device)
+    carry = row.zero_carry(b, w, bpp, orig.device)
     q = torch.empty_like(orig)
     f = torch.empty((b, r), dtype=torch.int64, device=orig.device)
     attempts = torch.zeros(b, dtype=torch.int32, device=orig.device)
     for y in range(r):
-        carry, f[:, y], tries = optimize_gpu.row_step(
-            s, bleed, orig[:, y].contiguous(), carry, ofreq, w_real)
-        q[:, y] = carry.qprev
+        orow = orig[:, y].contiguous()
+        qprev, oprev, e0, e1, hist = carry
+
+        def attempt(s_try):
+            return row.row_attempt(s_try, bleed, orow, qprev, e0, e1, hist,
+                                   ofreq, w_real)
+
+        (qn, hn, e0n, e1n), f[:, y], tries = strength_loop(
+            attempt, s, orow, qprev, oprev, e0, e1, hist, w_real)
+        carry = Carry(qn, orow, e0n, e1n, hn)
+        q[:, y] = qn
         attempts += tries
     return q, f, attempts

@@ -4,20 +4,25 @@ Counterpart of ``pngloss_tpu/ops/optimize_pallas.py``. For a batch of
 same-shaped (possibly padded) working-format planes:
 
   1. the whole-image pre-pass (``hist``), always over the whole image;
-  2. row 0 through ``row``: the histogram-delta cost, the derivative error,
-     libpng's MSAD self-check and the first-minimum winner. Images with no
-     passing filter retry at strength s-1; at s <= 0 the min-cost row is
-     accepted (where the C tool would abort). The retry loop runs on the
-     host, one sync per attempt;
+  2. row 0 through ``row.row_retry``: the histogram-delta cost, the
+     derivative error, libpng's MSAD self-check and the first-minimum
+     winner. Images with no passing filter retry at strength s-1; at s <= 0
+     the min-cost row is accepted (where the C tool would abort). On CUDA
+     tensors the strength loop runs inside one launch of the row kernel, as
+     the JAX package runs it inside its device program;
   3. rows 1..H-1 through ``image`` in one launch. In CLI mode
      (``use_row_filters=True``) only row 0 can fail, so this is final. In
      embedding mode every row runs the MSAD self-check: the image kernel
      speculates at full strength and flags each image where some row had
      no passing filter; only those images re-run through the per-row path
-     (``optimize_rows``: row 0 through step 2's loop, then the rows after
-     it in one launch of the image kernel's retry variant, which runs the
+     (``optimize_rows``: row 0 through step 2, then the rows after it in
+     one launch of the image kernel's retry variant, which runs the
      strength loop of every row on the device), and their results replace
      the speculation's.
+
+In CLI mode nothing here reads a device value, so a call on CUDA tensors
+only queues work on the current stream: the host never waits for the
+card. Embedding mode waits once, for the speculation's ``ok``.
 
 An image one row high runs step 2 alone. The kernels compare the adaptive
 frequency alone in 32 bits and then a key built from the rank of the
@@ -27,19 +32,32 @@ batches are cut into chunks sized by free device memory.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pngloss_tpu_torch.convert import Carry
 from pngloss_tpu_torch.ops import hist as hist_op
 from pngloss_tpu_torch.ops import image as image_op
 from pngloss_tpu_torch.ops import row as row_op
-from pngloss_tpu_torch.ops.optimize import strength_loop
+from pngloss_tpu_torch.ops.row import zero_carry
 
 # share of free device memory one chunk may take
 _MEMORY_SHARE = 0.25
 # every kernel's grid is one-dimensional, at least one block per image;
 # far below its 2^31 - 1, and a chunk this large is cut by memory first
 _MAX_CHUNK = 1 << 20
+
+
+def to_device(a, device) -> torch.Tensor:
+    """``a`` (a tensor or numpy-convertible host data) on ``device``. Host
+    data goes to a CUDA device through pinned memory without blocking, so
+    the host does not wait for the work queued on the stream before the
+    copy."""
+    t = a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a, order="C"))
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def bytes_per_image(h: int, w: int, bpp: int) -> int:
@@ -64,28 +82,14 @@ def max_batch(h: int, w: int, bpp: int, device) -> int:
     return max(1, min(_MAX_CHUNK, fit))
 
 
-def zero_carry(b: int, w: int, bpp: int, device) -> Carry:
-    """The state before row 0: zero rows, dither rows and histogram."""
-    zrow = torch.zeros((b, w, bpp), dtype=torch.int32, device=device)
-    zerr = torch.zeros((b, w + 5, 4), dtype=torch.int32, device=device)
-    zhist = torch.zeros((b, 256), dtype=torch.int32, device=device)
-    return Carry(zrow, zrow, zerr, zerr, zhist)
-
-
 def row_step(s, bleed: int, orow, carry: Carry, ofreq, w_real):
     """One row with the MSAD self-check and the strength fallback
-    (``strength_loop`` around the row kernel), from the state ``carry``
-    the previous row left. One host sync per attempt. Returns the winner's
-    state as the next row's Carry, its filter id (B,) int64 and the
-    attempts each image took (B,) int32."""
-    qprev, oprev, e0, e1, hist = carry
-
-    def attempt(s_try):
-        return row_op.row_attempt(s_try, bleed, orow, qprev, e0, e1, hist,
-                                  ofreq, w_real)
-
-    (q, h, e0n, e1n), best, tries = strength_loop(
-        attempt, s, orow, qprev, oprev, e0, e1, hist, w_real)
+    (``row.row_retry``: on CUDA tensors one launch with the loop inside,
+    no host sync), from the state ``carry`` the previous row left. Returns
+    the winner's state as the next row's Carry, its filter id (B,) int64
+    and the attempts each image took (B,) int32."""
+    (q, h, e0n, e1n), best, tries = row_op.row_retry(s, bleed, orow, carry,
+                                                     ofreq, w_real)
     return Carry(q, orow, e0n, e1n, h), best, tries
 
 
@@ -170,7 +174,9 @@ def optimize_batch(rows, strength, bleed: int = 2, *, bpp: int,
     def per_image(v, fill):
         if v is None:
             v = fill
-        t = torch.as_tensor(v, dtype=torch.int32, device=dev)
+        if not torch.is_tensor(v) and np.ndim(v) == 0:
+            return torch.full((b,), int(v), dtype=torch.int32, device=dev)
+        t = to_device(v, dev).to(torch.int32)
         return t.expand(b).contiguous() if t.dim() == 0 else t.contiguous()
 
     strength = per_image(strength, 0)

@@ -7,11 +7,19 @@ through ``optimize_batch_auto`` on its own device, and the results are
 gathered in batch order.
 
 A mesh is a tuple of ``torch.device``s (``data_mesh``). Each distinct
-device gets its own host thread: the optimizer syncs the host once per
-row-0 attempt, and embedding mode waits for the speculation's ``ok``, so
-one thread would run the shards one after another. Repeated entries, such
-as ``("cpu",) * 3`` or ``("cuda:0", "cuda:0")``, are allowed; they run as
-separate shards, in order, in their device's thread.
+device gets its own host thread. In CLI mode a shard only queues work on
+its device and returns without waiting for it; embedding mode waits for
+the speculation's ``ok``, which on one thread would run the shards one
+after another. Repeated entries, such as ``("cpu",) * 3`` or
+``("cuda:0", "cuda:0")``, are allowed; they run as separate shards, in
+order, in their device's thread.
+
+Each CUDA device keeps a small pool of streams (``STREAMS``) for the
+pipeline's shape buckets: a call given a ``slot`` runs its whole device
+work on stream ``slot % STREAMS`` of each shard's device
+(``bucket_stream``), so the buckets of a corpus run side by side on the
+card's SMs, and a bucket queues behind the one ``STREAMS`` slots before
+it, which bounds the device memory in flight without a host wait.
 
 Not ported, because they exist only for the TPU: padding the batch to a
 multiple of the mesh size, the bleed==1 reroute to XLA, the ``interpret``
@@ -21,6 +29,8 @@ switch, and ``band_pad`` / ``wmax``.
 from __future__ import annotations
 
 import concurrent.futures as _futures
+import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -30,6 +40,30 @@ from pngloss_tpu_torch.ops import (
     optimize_batch_auto,
     resolve_device,
 )
+
+
+# streams a CUDA device keeps for the buckets in flight: a bucket runs one
+# block per image, so several buckets share the SMs. The value is the
+# measured knee of chip_smoke.py phase 13's sweep over a ragged corpus
+# (PERF.md)
+STREAMS = 16
+_streams: dict = {}
+_streams_lock = threading.Lock()
+
+
+def bucket_stream(device, slot):
+    """The context the work of bucket ``slot`` runs in on ``device``: on
+    a CUDA device, stream ``slot % STREAMS`` of the device's pool (made at
+    first use); on the CPU, or for a slot of None, the current stream."""
+    device = torch.device(device)
+    if slot is None or device.type != "cuda":
+        return contextlib.nullcontext()
+    device = _indexed(device)
+    with _streams_lock:
+        pool = _streams.setdefault(device, [])
+        while len(pool) < STREAMS:
+            pool.append(torch.cuda.Stream(device))
+        return torch.cuda.stream(pool[slot % STREAMS])
 
 
 def _indexed(device: torch.device) -> torch.device:
@@ -80,7 +114,8 @@ def shard_bounds(b: int, n: int) -> list[tuple[int, int]]:
 
 def optimize_batch_sharded(rows, strength, bleed: int = 2, *, bpp: int,
                            use_row_filters: bool = True, mesh,
-                           fetch: bool = True, w_real=None, h_real=None):
+                           fetch: bool = True, w_real=None, h_real=None,
+                           slot=None):
     """Batch optimize with the batch axis split over ``mesh``.
 
     rows: (B, H, W*bpp) uint8, numpy or tensor. strength and the real
@@ -91,7 +126,9 @@ def optimize_batch_sharded(rows, strength, bleed: int = 2, *, bpp: int,
     fetch=False returns the still-on-device shards and the batch size,
     ``(qs, fs, B)``: lists of per-shard tensors in batch order, each on its
     shard's device (empty shards, where B < len(mesh), are left out), so
-    the caller can overlap the device-to-host copies with other work."""
+    the caller can overlap the device-to-host copies with other work.
+    slot: run each shard on its device's stream for that bucket slot
+    (``bucket_stream``); None runs on the current stream."""
     mesh = data_mesh(mesh)
     b = rows.shape[0]
 
@@ -112,10 +149,11 @@ def optimize_batch_sharded(rows, strength, bleed: int = 2, *, bpp: int,
     def run_device(dev):
         for k, (d, lo, hi) in enumerate(shards):
             if d == dev:
-                out[k] = optimize_batch_auto(
-                    rows[lo:hi], s[lo:hi], bleed, bpp=bpp, device=d,
-                    use_row_filters=use_row_filters, w_real=cut(wr, lo, hi),
-                    h_real=cut(hr, lo, hi))
+                with bucket_stream(d, slot):
+                    out[k] = optimize_batch_auto(
+                        rows[lo:hi], s[lo:hi], bleed, bpp=bpp, device=d,
+                        use_row_filters=use_row_filters,
+                        w_real=cut(wr, lo, hi), h_real=cut(hr, lo, hi))
 
     devices = list(dict.fromkeys(d for d, _, _ in shards))
     if len(devices) == 1:

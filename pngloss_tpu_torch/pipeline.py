@@ -8,10 +8,14 @@ pad ladder, each bucket is optimized in one call on ``device`` (default
 ``"cuda"``; nothing runs on the CPU unless ``device="cpu"``), or split
 over the devices of ``mesh`` (``parallel.data_mesh``), with the real sizes
 as per-image masks, and host DEFLATE drains finished buckets on a thread
-pool. On CUDA each shard's results are copied into pinned host memory
-without blocking, so later buckets are dispatched while earlier copies
-land. Each shard chunks itself by its own device's free memory. Output
-bytes equal ``pngloss_tpu.pipeline``'s.
+pool. On CUDA the dispatch never waits for the card in CLI mode: each
+bucket's upload (from pinned memory), kernels and copies back into pinned
+host memory are queued on one stream of its device's small pool
+(``parallel.mesh.bucket_stream``), the buckets longest chain first, so
+the short buckets run on the SMs beside the long ones; ``compress_many``
+encodes each bucket as its copy lands. Each shard chunks itself by its
+own device's free memory. Output bytes equal ``pngloss_tpu.pipeline``'s,
+whatever the pool size and the order.
 
 The host helpers below are copies of ``pngloss_tpu.pipeline``'s: the port
 imports nothing of the JAX package.
@@ -22,12 +26,14 @@ from __future__ import annotations
 import concurrent.futures as _futures
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
 
 from pngloss_tpu_torch import codec, tracing
 from pngloss_tpu_torch.parallel import optimize_batch_sharded, resolve_mesh
+from pngloss_tpu_torch.parallel.mesh import bucket_stream
 
 
 def working_bpp(rgba: np.ndarray) -> int:
@@ -125,11 +131,12 @@ class _PendingBucket:
     done: list = dataclasses.field(default_factory=list)
 
 
-def _gather_to_host(qs, fs):
+def _gather_to_host(qs, fs, slot=None):
     """The shards' results as one host tensor each, in batch order. CUDA
-    shards copy into pinned memory without blocking; returns (q, f,
-    events), one event per CUDA shard, recorded on the stream of the
-    shard's device, which did its copy."""
+    shards copy into pinned memory without blocking, on their device's
+    stream for the bucket ``slot``, which ran their kernels; returns (q, f,
+    events), one event per CUDA shard, recorded on that stream after its
+    copies."""
     if all(q.device.type != "cuda" for q in qs):
         return torch.cat(qs), torch.cat(fs), []
     b = sum(len(q) for q in qs)
@@ -140,14 +147,24 @@ def _gather_to_host(qs, fs):
     done, lo = [], 0
     for q, f in zip(qs, fs):
         hi = lo + len(q)
-        qh[lo:hi].copy_(q, non_blocking=True)
-        fh[lo:hi].copy_(f, non_blocking=True)
-        if q.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(q.device))
-            done.append(event)
+        with bucket_stream(q.device, slot):
+            qh[lo:hi].copy_(q, non_blocking=True)
+            fh[lo:hi].copy_(f, non_blocking=True)
+            if q.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(q.device))
+                done.append(event)
         lo = hi
     return qh, fh, done
+
+
+def dispatch_order(keys):
+    """Bucket keys (h_pad, wb_pad, bpp) in the order they are dispatched:
+    longest chain first. A bucket's device time is its image kernel's
+    chain, h_pad * w_pad * bpp channel steps, almost whatever its batch,
+    so the short buckets fill the SMs around the long ones. Ties keep
+    their order."""
+    return sorted(keys, key=lambda k: -k[0] * k[1])
 
 
 def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
@@ -163,7 +180,15 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
     per-image masks, so mixed sizes batch together while outputs stay
     byte-identical to unpadded runs. strength: scalar or per-image sequence
     (mixed strengths share one launch). use_row_filters=False runs
-    embedding mode."""
+    embedding mode.
+
+    The buckets are dispatched in ``dispatch_order``, the k-th on the
+    stream for slot k of its devices' pools (``bucket_stream``): upload,
+    kernels and copies back on that stream, so in CLI mode nothing waits
+    for the card and this returns once the work is queued; embedding mode
+    waits for each bucket's speculation on its own stream. The pending
+    buckets come back in the order their shapes first appear, as
+    ``pngloss_tpu.pipeline`` returns them."""
     mesh = resolve_mesh(device, mesh)
     per_image = not np.isscalar(strength)
     buckets: dict[tuple[int, int, int], list[int]] = {}
@@ -172,8 +197,10 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
         key = (pad_dim(h), pad_dim(wb // bpp) * bpp, bpp)
         buckets.setdefault(key, []).append(i)
 
-    pending = []
-    for (h_pad, wb_pad, bpp), idxs in buckets.items():
+    pending = {}
+    for slot, key in enumerate(dispatch_order(list(buckets))):
+        h_pad, wb_pad, bpp = key
+        idxs = buckets[key]
         dims = [works[i].shape for i in idxs]
         batch = np.zeros((len(idxs), h_pad, wb_pad), np.uint8)
         for k, i in enumerate(idxs):
@@ -186,10 +213,43 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
         with tracing.stage(f"device_dispatch_{h_pad}x{wb_pad // bpp}x{bpp}"):
             qs, fs, _ = optimize_batch_sharded(
                 batch, s, bleed, bpp=bpp, use_row_filters=use_row_filters,
-                mesh=mesh, fetch=False, w_real=w_real, h_real=h_real)
-            qh, fh, done = _gather_to_host(qs, fs)
-        pending.append(_PendingBucket(idxs, bpp, qh, fh, dims, done))
-    return pending
+                mesh=mesh, fetch=False, w_real=w_real, h_real=h_real,
+                slot=slot)
+            qh, fh, done = _gather_to_host(qs, fs, slot)
+        pending[key] = _PendingBucket(idxs, bpp, qh, fh, dims, done)
+    return [pending[key] for key in buckets]
+
+
+# seconds between two looks at the pending buckets' events
+POLL_S = 0.0005
+
+
+def landed(pending):
+    """The pending buckets in the order their host copies land: each time
+    the first one whose events have all completed, looked for every
+    POLL_S seconds; the waiting is the stage device_fetch. A bucket with
+    no event (the CPU's) has landed."""
+    left = list(pending)
+    while left:
+        with tracing.stage("device_fetch"):
+            while True:
+                ready = next((k for k, p in enumerate(left)
+                              if all(e.query() for e in p.done)), None)
+                if ready is not None:
+                    break
+                time.sleep(POLL_S)
+        yield left.pop(ready)
+
+
+def _bucket_arrays(p: _PendingBucket):
+    """A landed bucket's (qs, fs): per-image lists sliced to each image's
+    real (H, W*bpp)."""
+    q = p.q.numpy()
+    f = p.f.numpy()
+    qs = [q[k, :h, :wb] for k, (h, wb) in enumerate(p.dims)]
+    fs = [f[k, :h] for k, (h, _) in enumerate(p.dims)]
+    _warn_abort_fallbacks(qs, fs, p.bpp)
+    return qs, fs
 
 
 def collect_bucket(p: _PendingBucket):
@@ -198,12 +258,7 @@ def collect_bucket(p: _PendingBucket):
     with tracing.stage("device_fetch"):
         for event in p.done:
             event.synchronize()
-        q = p.q.numpy()
-        f = p.f.numpy()
-    qs = [q[k, :h, :wb] for k, (h, wb) in enumerate(p.dims)]
-    fs = [f[k, :h] for k, (h, _) in enumerate(p.dims)]
-    _warn_abort_fallbacks(qs, fs, p.bpp)
-    return qs, fs
+    return _bucket_arrays(p)
 
 
 def optimize_rgba_batch(rgbas, strength=19, bleed: int = 2, *,
@@ -351,8 +406,8 @@ def compress_many(files, strength=19, bleed: int = 2, *,
     raises ``CudaUnavailableError``), or split over the devices of ``mesh``
     (``parallel.data_mesh``), which, when given, replaces ``device``.
 
-    decode pool -> colorspace reduce -> optimize each shape bucket
-      -> per bucket: wait for its host copy -> encode pool
+    decode pool -> colorspace reduce -> queue each shape bucket on the
+      device -> per bucket, as its host copy lands: encode pool
 
     Both host pools have os.cpu_count() threads; zlib INFLATE/DEFLATE
     release the GIL, so the pools scale with real cores.
@@ -427,8 +482,8 @@ def compress_many(files, strength=19, bleed: int = 2, *,
     # drain: as each bucket's copy lands, its encodes run on the pool
     with _futures.ThreadPoolExecutor(workers) as pool:
         futs = []
-        for p in pending:
-            qb, fb = collect_bucket(p)
+        for p in landed(pending):
+            qb, fb = _bucket_arrays(p)
             futs += [pool.submit(_encode, j, qb[k], fb[k])
                      for k, j in enumerate(p.idxs)]
         for fut in futs:

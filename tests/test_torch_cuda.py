@@ -28,6 +28,7 @@ from pngloss_tpu_torch.ops.edges import (
     edge_inputs,
     give_up_inputs,
     hist_edge_inputs,
+    row_retry_inputs,
     rows_by_step,
 )
 
@@ -169,10 +170,11 @@ def test_retry_image_kernel_matches_plain(cuda, bpp):
 
 @pytest.mark.parametrize("bpp", [1, 2, 3, 4])
 def test_optimize_rows_cuda_matches_the_loop_over_row_step(cuda, bpp):
-    """The per-row path on the card: the row kernel runs the attempts of
-    row 0 only, the retry variant once, and rows, filters and attempts per
-    image equal the row kernel with the strength loop on the host; from a
-    carry (no row 0) the row kernel is not launched at all."""
+    """The per-row path on the card: the row kernel's retry variant runs
+    row 0 in one launch, the image kernel's retry variant the rows after
+    it in one, and rows, filters and attempts per image equal the row
+    kernel's one-attempt variant with the strength loop on the host; from
+    a carry (no row 0) the row kernel is not launched at all."""
     rng = np.random.default_rng(492 + bpp)
     b, h, w = 5, 7, 9
     rows = rng.integers(0, 256, (b, h, w * bpp), dtype=np.uint8)
@@ -184,34 +186,35 @@ def test_optimize_rows_cuda_matches_the_loop_over_row_step(cuda, bpp):
     orig = rows_d.view(b, h, w, bpp).to(torch.int32)
 
     *want, tries_host = rows_by_step(s, 2, orig, ofreq, wr)
-    n0 = row.LAUNCHES
+    before = (row.LAUNCHES, row.RETRY_LAUNCHES)
     carry, _, tries = optimize_gpu.row_step(
         s, 2, orig[:, 0].contiguous(),
         optimize_gpu.zero_carry(b, w, bpp, cuda), ofreq, wr)
-    first = row.LAUNCHES - n0
+    assert (row.LAUNCHES, row.RETRY_LAUNCHES) == (before[0], before[1] + 1)
     tries = tries + image.image_rows(s, 2, wr, ofreq, rows_d, carry.qprev,
                                      carry.e0, carry.e1, carry.hist,
                                      adaptive=True, retry=True)[2]
     _assert_same([tries], [tries_host])
     assert int(tries.max()) > h, "no row retried"
 
-    before = (row.LAUNCHES, image.RETRY_LAUNCHES)
+    before = (row.LAUNCHES, row.RETRY_LAUNCHES, image.RETRY_LAUNCHES)
     got = optimize_gpu.optimize_rows(s, 2, orig, ofreq, wr)
-    assert (row.LAUNCHES - before[0], image.RETRY_LAUNCHES - before[1]) == (
-        first, 1)
+    assert (row.LAUNCHES - before[0], row.RETRY_LAUNCHES - before[1],
+            image.RETRY_LAUNCHES - before[2]) == (0, 1, 1)
     _assert_same(got, want)
 
-    before = (row.LAUNCHES, image.RETRY_LAUNCHES)
+    before = (row.LAUNCHES, row.RETRY_LAUNCHES, image.RETRY_LAUNCHES)
     q, f = optimize_gpu.optimize_rows(s, 2, orig[:, 1:], ofreq, wr,
                                       carry=carry)
-    assert (row.LAUNCHES, image.RETRY_LAUNCHES) == (before[0], before[1] + 1)
+    assert (row.LAUNCHES, row.RETRY_LAUNCHES, image.RETRY_LAUNCHES) == (
+        before[0], before[1], before[2] + 1)
     _assert_same((q, f), (want[0][:, 1:], want[1][:, 1:]))
 
 
 def test_embedding_fallback_is_one_retry_launch(cuda):
-    """An embedding call whose speculation fails: the row kernel runs the
-    attempts of row 0 (the batch's, then the failed images'), the retry
-    variant once."""
+    """An embedding call whose speculation fails: the row kernel's retry
+    variant runs row 0 twice (the batch's, then the failed images'), the
+    one-attempt variant never, the image kernel's retry variant once."""
     rows = np.random.default_rng(700).integers(0, 256, (4, 6, 21),
                                                dtype=np.uint8)
     rows_d = torch.as_tensor(rows, device=cuda)
@@ -223,16 +226,12 @@ def test_embedding_fallback_is_one_retry_launch(cuda):
                           c0.hist, adaptive=True)[2]
     bad = (ok == 0).nonzero().squeeze(1)
     assert 0 < bad.numel() < 4
-    firsts = []
-    for sel in (slice(None), bad):
-        n0 = row.LAUNCHES
-        optimize_gpu.row0(s[sel], 2, orig0[sel], ofreq[sel], wr[sel])
-        firsts.append(row.LAUNCHES - n0)
-    before = (row.LAUNCHES, image.ADAPTIVE_LAUNCHES, image.RETRY_LAUNCHES)
+    counters = (lambda: (row.LAUNCHES, row.RETRY_LAUNCHES,
+                         image.ADAPTIVE_LAUNCHES, image.RETRY_LAUNCHES))
+    before = counters()
     qg, fg = optimize_batch_auto(rows, 45, 2, bpp=3, device=cuda,
                                  use_row_filters=False)
-    assert (row.LAUNCHES - before[0], image.ADAPTIVE_LAUNCHES - before[1],
-            image.RETRY_LAUNCHES - before[2]) == (sum(firsts), 1, 1)
+    assert tuple(a - b for a, b in zip(counters(), before)) == (0, 2, 1, 1)
     qc, fc = optimize_batch_auto(rows, 45, 2, bpp=3, device="cpu",
                                  use_row_filters=False)
     np.testing.assert_array_equal(qg.cpu().numpy(), qc.numpy())
@@ -403,12 +402,24 @@ def test_kernels_launch_on_their_tensors_device(cuda):
             assert [r.unwrap() for r in got] == want
 
 
+def _flat(retry_out):
+    """row_retry's ((q, hist, e0n, e1n), filter, attempts) as one list."""
+    state, best, tries = retry_out
+    return [*state, best, tries]
+
+
 @pytest.mark.parametrize("name", sorted(EDGES))
 def test_kernels_at_the_designs_edges(cuda, name):
-    """Each kernel on the card against its plain version on the CPU."""
+    """Each kernel on the card against its plain version on the CPU; the
+    row kernel's retry variant on row 0 and on row 1 (which retries from
+    strength 32, 255, 2 and 1 in the ``retry-`` cases)."""
     (row_args, image_args) = edge_inputs(name, cuda)
     (row_cpu, image_cpu) = edge_inputs(name, "cpu")
     _assert_same(row.row_attempt(*row_args), row.row_attempt_ref(*row_cpu))
+    for on_card, on_cpu in zip(row_retry_inputs(image_args),
+                               row_retry_inputs(image_cpu)):
+        _assert_same(_flat(row.row_retry(*on_card)),
+                     _flat(row.row_retry_ref(*on_cpu)))
     for adaptive in (False, True):
         _assert_same(image.image_rows(*image_args, adaptive=adaptive),
                      image.image_rows_ref(*image_cpu, adaptive=adaptive))
@@ -476,3 +487,146 @@ def test_fuzz_slice(cuda, seed, mode):
     recs = _fuzz_tool().run_batch(7000 + seed, cuda, mode=mode, max_px=12)
     assert {r["check"] for r in recs} == {"end_to_end", "kernels"}
     assert [r for r in recs if not r["identical"]] == []
+
+
+ROW_STRENGTHS = [0, 1, 2, 19, 40, 255]
+
+
+def _mid_state(rng, b, w, bpp, device):
+    """A mid-image row state with the previous row's originals."""
+    from pngloss_tpu_torch.convert import Carry
+
+    return Carry(_i32(rng.integers(0, 256, (b, w, bpp)), device),
+                 _i32(rng.integers(0, 256, (b, w, bpp)), device),
+                 _i32(rng.integers(-40, 41, (b, w + 5, 4)), device),
+                 _i32(rng.integers(-40, 41, (b, w + 5, 4)), device),
+                 _i32(rng.integers(0, 3, (b, 256)), device))
+
+
+@pytest.mark.parametrize("bleed", [1, 2, 32767])
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_row_retry_kernel_matches_plain(cuda, bpp, bleed):
+    """The row kernel's retry variant (a row with its strength loop, one
+    launch) against ``strength_loop`` around ``row_attempt_ref``: rows,
+    histograms, dither rows, filters and attempts, at strengths 0, 1, 2,
+    19, 40 and 255, from the zero state before row 0 (``row0_retry``) and
+    from a mid-image state."""
+    rng = np.random.default_rng(500 + 10 * bpp + bleed % 7)
+    b, w = len(ROW_STRENGTHS), 9
+    s, wr = _i32(ROW_STRENGTHS, cuda), _i32([9, 5, 9, 2, 9, 7], cuda)
+    orig = rng.integers(0, 256, (b, w, bpp))
+    if bpp % 2 == 0:
+        orig[:, ::3, bpp - 1] = 0
+    orig = _i32(orig, cuda)
+    ofreq = _i32(rng.integers(0, 3, (b, 5, 256)), cuda)
+    before = row.RETRY_LAUNCHES
+    got = row.row0_retry(s, bleed, orig, ofreq, wr)
+    assert row.RETRY_LAUNCHES == before + 1
+    _assert_same(_flat(got), _flat(row.row_retry_ref(
+        s, bleed, orig, optimize_gpu.zero_carry(b, w, bpp, cuda), ofreq,
+        wr)))
+    carry = _mid_state(rng, b, w, bpp, cuda)
+    got = row.row_retry(s, bleed, orig, carry, ofreq, wr)
+    _assert_same(_flat(got), _flat(row.row_retry_ref(s, bleed, orig, carry,
+                                                     ofreq, wr)))
+
+
+def _image_slice(args, k):
+    """Image k of a tuple of batch arguments (tensors and Carrys)."""
+    from pngloss_tpu_torch.convert import Carry
+
+    return [Carry(*(t[k:k + 1] for t in a)) if isinstance(a, Carry)
+            else a[k:k + 1] if isinstance(a, torch.Tensor) else a
+            for a in args]
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_row_retry_give_up_branch_matches_plain(cuda, bpp):
+    """The test-only never_pass flag on images at strengths 0, 1, 2 and 40
+    beside unflagged images in one launch of the row kernel's retry
+    variant, at row 0 and row 1: equal to its plain version, flagged images
+    take s + 1 attempts, unflagged ones equal themselves run alone."""
+    image_args, flags = give_up_inputs(bpp, cuda)
+    flagged = flags.bool()
+    for args in row_retry_inputs(image_args):
+        got = row.row_retry(*args, never_pass=flags)
+        _assert_same(_flat(got),
+                     _flat(row.row_retry_ref(*args, never_pass=flags)))
+        assert got[2][flagged].tolist() == (args[0][flagged] + 1).tolist()
+        for k in (~flagged).nonzero().squeeze(1).tolist():
+            _assert_same(_flat(row.row_retry(*_image_slice(args, k))),
+                         [t[k:k + 1] for t in _flat(got)])
+
+
+def _ragged_works(seed, n=14):
+    """Working-format planes of mixed sizes and bpp 1-4 (several buckets)."""
+    rng = np.random.default_rng(seed)
+    works, bpps = [], []
+    for _ in range(n):
+        h, w, bpp = (int(v) for v in (rng.integers(3, 40),
+                                      rng.integers(3, 40),
+                                      rng.integers(1, 5)))
+        works.append(rng.integers(0, 256, (h, w * bpp), dtype=np.uint8))
+        bpps.append(bpp)
+    return works, bpps
+
+
+def _collected(pending):
+    from pngloss_tpu_torch import pipeline
+
+    out = []
+    for p in pending:
+        qs, fs = pipeline.collect_bucket(p)
+        out += [(q.tobytes(), f.tobytes()) for q, f in zip(qs, fs)]
+    return out
+
+
+def test_dispatch_buckets_waits_for_nothing(cuda):
+    """CLI mode on the card makes no host sync: ``dispatch_buckets`` runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, and it returns
+    before a ~50 ms device-side spin, queued ahead of its work on every
+    stream of the pool, has ended. Its output equals a run without the
+    spin."""
+    from pngloss_tpu_torch import pipeline
+    from pngloss_tpu_torch.parallel import mesh
+
+    works, bpps = _ragged_works(470)
+    want = _collected(pipeline.dispatch_buckets(works, bpps, 19,
+                                                device=cuda))
+    spins = []
+    for slot in range(mesh.STREAMS):
+        with mesh.bucket_stream(cuda, slot):
+            torch.cuda._sleep(100_000_000)     # ~50 ms at 1.98 GHz
+            spins.append(torch.cuda.Event())
+            spins[-1].record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = pipeline.dispatch_buckets(works, bpps, 19, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not any(e.query() for e in spins)
+    assert len(pending) > 3
+    assert _collected(pending) == want
+
+
+def test_pool_of_one_gives_the_pools_bytes(cuda, monkeypatch):
+    """``compress_many`` with one stream a device, in the dispatch order
+    of the bucket keys as they first appear, gives the bytes of the pool
+    in longest-chain order."""
+    from pngloss_tpu.codec import encode
+    from pngloss_tpu_torch import pipeline
+    from pngloss_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(471)
+    pngs = []
+    for _ in range(10):
+        h, w = (int(v) for v in rng.integers(3, 60, 2))
+        rgba = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+        rgba[..., 3] = 255 if h % 2 else rgba[..., 3]
+        pngs.append(encode(rgba, row_filters=None))
+    want = [r.unwrap() for r in pipeline.compress_many(pngs, 19,
+                                                       device=cuda)]
+    monkeypatch.setattr(mesh, "STREAMS", 1)
+    monkeypatch.setattr(pipeline, "dispatch_order", list)
+    got = [r.unwrap() for r in pipeline.compress_many(pngs, 19, device=cuda)]
+    assert got == want

@@ -15,9 +15,11 @@ JAX package with the C tool). Each batch is one seed and checks:
       --mode both, even seeds run CLI mode and odd seeds embedding mode.
   (b) with --device cuda, each kernel against its plain version on the
       same card tensors, on one bucket of ``ops/random_cases.random_bucket``
-      (one launch of each kernel): hist, row (row 0), image, image adaptive
-      (with ok) and image retry (with attempts); the last two with the
-      test-only ``never_pass`` flag on some low-strength images.
+      (one launch of each kernel): hist, row (row 0, one attempt), row
+      retry (row 0 with its strength loop, with filter and attempts), image,
+      image adaptive (with ok) and image retry (with attempts); the retry
+      variants and image adaptive with the test-only ``never_pass`` flag on
+      some low-strength images.
 
 Usage:
   python tools/fuzz_torch.py --device cpu --total 64 --max-px 8
@@ -73,6 +75,12 @@ AXES = {
     "row.hist": ("filter", "bin"),
     "row.e0": ("filter", "col", "lane"),
     "row.e1": ("filter", "col", "lane"),
+    "row_retry.q": ("col", "channel"),
+    "row_retry.hist": ("bin",),
+    "row_retry.e0": ("col", "lane"),
+    "row_retry.e1": ("col", "lane"),
+    "row_retry.f": (),
+    "row_retry.attempts": (),
     "q": ("row", "col", "channel"),
     "f": ("row",),
     "ok": (),
@@ -187,6 +195,13 @@ def kernel_outputs(bucket, bleed: int, device) -> dict[str, tuple]:
     args = (s, bleed, orig0, z.qprev, z.e0, z.e1, z.hist, ofreq, wr)
     add("row", ("row.q", "row.hist", "row.e0", "row.e1"),
         row.row_attempt(*args), row.row_attempt_ref(*args))
+    (q, *state), f, n = row.row0_retry(s, bleed, orig0, ofreq, wr,
+                                        never_pass)
+    (q_ref, *state_ref), f_ref, n_ref = row.row_retry_ref(
+        s, bleed, orig0, z, ofreq, wr, never_pass)
+    add("row_retry", ("row_retry.q", "row_retry.hist", "row_retry.e0",
+                      "row_retry.e1", "row_retry.f", "row_retry.attempts"),
+        (q, *state, f, n), (q_ref, *state_ref, f_ref, n_ref))
     c0, _ = row0(s, bleed, orig0, ofreq, wr)
     args = (s, bleed, wr, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
     add("image", ("q", "f"), image.image_rows(*args),
