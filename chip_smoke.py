@@ -129,6 +129,12 @@ SEED = 0
 N_IMAGES, SIDE, STRENGTH = 16, 512, 19
 # phase 3a: the row kernel's retry variant at these strengths, bpp 1-4
 ROW_STRENGTHS = (0, 1, 2, 19, 40, 255)
+# the image kernel's retry variant (the ladder) at these cluster sizes, in
+# phase 3a besides the size it picks; phase 6 and the turns of 3b add 4
+LADDER_CHECKS = (1, 2, 8)
+LADDER_TIMES = (1, 2, 4, 8)
+# phase 3a: real heights of the give-up batch's images (ops/edges.GIVE_UP)
+RAGGED_HEIGHTS = (4, 2, 1, 3, 4, 2)
 KERNELS = (
     # name, source, TPU kernel it replaces
     ("hist", "pngloss_tpu_torch/csrc/hist.cu",
@@ -199,7 +205,7 @@ MSAD_TRIAL_OPS = 6
 NO_LIBRARY = ("no PyTorch call computes any of them: the pre-pass needs five "
               "predictors' residuals before any bincount, and row and "
               "image are sequential recurrences")
-EMBED_KERNELS = ("hist", "row_retry", "image_adaptive", "image_retry")
+EMBED_KERNELS = ("hist", "row_retry", "image_retry")
 # phase 12: batches (one seed each), end-to-end images a batch and their
 # largest side, and the largest kernel bucket in image-kernel channel steps
 FUZZ_SEED, FUZZ_BATCHES, FUZZ_E2E, FUZZ_MAX_PX = 1200, 40, 5, 8
@@ -283,10 +289,12 @@ def synthetic_rgb(rng, n: int, h: int, w: int) -> np.ndarray:
     return np.concatenate([rgb, alpha], -1).astype(np.uint8)
 
 
-def check_kernels(device) -> dict[str, int]:
+def check_kernels(device, log=None) -> dict[str, int]:
     """Phase 3a: every kernel against its plain version on small shapes
     that reach every branch, and on the EDGES cases (their plain versions
-    on the CPU). Returns the max abs error per kernel (raises unless all
+    on the CPU); the image kernel's retry variant (the ladder) at the
+    cluster size it picks and at LADDER_CHECKS, its rounds against the
+    plain ladder's. Returns the max abs error per kernel (raises unless all
     are 0)."""
     import torch
 
@@ -304,6 +312,7 @@ def check_kernels(device) -> dict[str, int]:
     rng = np.random.default_rng(SEED + 1)
     rng6 = np.random.default_rng(SEED + 11)
     errs = dict.fromkeys((k[0] for k in KERNELS), 0)
+    ladder_rounds: dict = {}      # cluster size -> rounds summed per image
     oks = set()
     retried = False
     row_retried = set()       # strengths the row retry variant retried from
@@ -380,10 +389,14 @@ def check_kernels(device) -> dict[str, int]:
             errs[key] = max(errs[key], _max_err(
                 image.image_rows(*image_args, adaptive=adaptive),
                 image.image_rows_ref(*image_cpu, adaptive=adaptive)))
+        want = image.image_rows_retry_ref(*image_cpu)
         errs["image_retry"] = max(errs["image_retry"], _max_err(
-            image.image_rows(*image_args, adaptive=True, retry=True),
-            image.image_rows_retry_ref(*image_cpu)))
-    for key, err in check_give_up(device).items():
+            image.image_rows(*image_args, adaptive=True, retry=True), want))
+        if name.startswith("retry"):
+            for k in LADDER_CHECKS:
+                errs["image_retry"] = max(errs["image_retry"], ladder_err(
+                    image_args, image_cpu, want, k, ladder_rounds))
+    for key, err in check_give_up(device, ladder_rounds).items():
         errs[key] = max(errs[key], err)
     if any(errs.values()):
         raise AssertionError(f"kernel != plain version: {errs}")
@@ -394,17 +407,57 @@ def check_kernels(device) -> dict[str, int]:
     if not {1, 2, 32, 255} <= row_retried:
         raise AssertionError(f"the row retry variant retried from strengths "
                              f"{sorted(row_retried)} only")
+    if log:
+        log(f"  ladder (image retry variant) on the EDGES retry cases and "
+            f"the give-up batch: k {sorted(ladder_rounds)}, rounds "
+            f"{ladder_rounds}; picks k={image.ladder_size(4, 3, device)} "
+            f"for 4 images, {image.ladder_size(6, 3, device)} for 6")
+        log("  clusters resident at once per bpp {k: clusters}: " + ", ".join(
+            f"bpp {bpp} {image.resident_clusters(bpp, device)}"
+            for bpp in (1, 2, 3, 4)) + "; k picked at bpp 3 for B images: "
+            + str({b: image.ladder_size(b, 3, device)
+                   for b in (1, 2, 16, 32, 64, 132)}))
     return errs
 
 
-def check_give_up(device) -> dict[str, int]:
+def ladder_err(on_card, on_cpu, want, k: int, seen: dict,
+               never_pass=None) -> int:
+    """The ladder at cluster size k on card tensors against ``want`` (the
+    sequential plain version's rows, filters and attempts), and its rounds:
+    at k = 1 the attempts, at the largest of LADDER_CHECKS the plain
+    ladder's on the CPU (``on_cpu``). Adds the rounds to ``seen[k]``.
+    Returns the max abs error."""
+    import torch
+
+    from pngloss_tpu_torch.ops import image
+
+    b = on_card[0].shape[0]
+    rounds = torch.zeros(b, dtype=torch.int32, device=on_card[0].device)
+    got = image.image_rows(*on_card, adaptive=True, retry=True, k=k,
+                           rounds=rounds, never_pass=never_pass)
+    seen[k] = seen.get(k, 0) + int(rounds.sum())
+    err = _max_err(got, want)
+    if k == 1:
+        return max(err, _max_err(rounds, want[2]))
+    if k == max(LADDER_CHECKS):
+        plain = torch.zeros(b, dtype=torch.int32)
+        image.image_rows_ladder_ref(
+            *on_cpu, k=k, rounds=plain,
+            never_pass=None if never_pass is None else never_pass.cpu())
+        err = max(err, _max_err(rounds, plain))
+    return err
+
+
+def check_give_up(device, ladder_rounds: dict) -> dict[str, int]:
     """Phase 3a, the give-up branch: the image kernel's adaptive and retry
-    variants and the row kernel's retry variant (row 0 and row 1) with the
-    test-only never_pass flag on images at strengths 0, 1, 2 and 40 beside
-    unflagged images, at bpp 1-4, against their plain versions on the same
-    card tensors. Flagged images must get ok 0 and take s + 1 attempts a
-    row; unflagged ones must equal themselves run alone. Returns the max
-    abs error per variant."""
+    variants (the latter also at LADDER_CHECKS) and the row kernel's retry
+    variant (row 0 and row 1) with the test-only never_pass flag on images
+    at strengths 0, 1, 2 and 40 beside unflagged images, at bpp 1-4,
+    against their plain versions on the same card tensors. Flagged images
+    must get ok 0 and take s + 1 attempts a row; unflagged ones must equal
+    themselves run alone. Then the same batch with real heights
+    RAGGED_HEIGHTS: every image variant stops at the last real row. Returns
+    the max abs error per variant."""
     from pngloss_tpu_torch.convert import Carry
     from pngloss_tpu_torch.ops import image, row
     from pngloss_tpu_torch.ops.edges import (
@@ -413,7 +466,8 @@ def check_give_up(device) -> dict[str, int]:
         row_retry_inputs,
     )
 
-    errs = {"image_adaptive": 0, "image_retry": 0, "row_retry": 0}
+    errs = {"image": 0, "image_adaptive": 0, "image_retry": 0,
+            "row_retry": 0}
     for bpp in (1, 2, 3, 4):
         args, flags = give_up_inputs(bpp, device)
         flagged = flags.bool()
@@ -437,8 +491,12 @@ def check_give_up(device) -> dict[str, int]:
         retry = image.image_rows(*args, adaptive=True, retry=True,
                                  never_pass=flags)
         adaptive = image.image_rows(*args, adaptive=True, never_pass=flags)
-        errs["image_retry"] = max(errs["image_retry"], _max_err(
-            retry, image.image_rows_retry_ref(*args, never_pass=flags)))
+        want = image.image_rows_retry_ref(*args, never_pass=flags)
+        errs["image_retry"] = max(errs["image_retry"], _max_err(retry, want))
+        cpu = [a.cpu() if hasattr(a, "cpu") else a for a in args]
+        for k in LADDER_CHECKS:
+            errs["image_retry"] = max(errs["image_retry"], ladder_err(
+                args, cpu, want, k, ladder_rounds, never_pass=flags))
         errs["image_adaptive"] = max(errs["image_adaptive"], _max_err(
             adaptive, image.image_rows_ref(*args, adaptive=True,
                                            never_pass=flags)))
@@ -453,6 +511,22 @@ def check_give_up(device) -> dict[str, int]:
             alone = image.image_rows(*one, adaptive=True, retry=True)
             errs["image_retry"] = max(errs["image_retry"], _max_err(
                 alone, tuple(t[k:k + 1] for t in retry)))
+        # ragged: padded rows are not run, come out as 0, and count in
+        # neither ok nor attempts
+        hr = _i32(RAGGED_HEIGHTS, device)
+        errs["image"] = max(errs["image"], _max_err(
+            image.image_rows(*args, h_real=hr),
+            image.image_rows_ref(*args, h_real=hr)))
+        errs["image_adaptive"] = max(errs["image_adaptive"], _max_err(
+            image.image_rows(*args, adaptive=True, never_pass=flags,
+                             h_real=hr),
+            image.image_rows_ref(*args, adaptive=True, never_pass=flags,
+                                 h_real=hr)))
+        want = image.image_rows_retry_ref(*args, never_pass=flags, h_real=hr)
+        for k in (None, *LADDER_CHECKS):
+            errs["image_retry"] = max(errs["image_retry"], _max_err(
+                image.image_rows(*args, adaptive=True, retry=True, k=k,
+                                 never_pass=flags, h_real=hr), want))
     return errs
 
 
@@ -470,12 +544,14 @@ def main_inputs(device):
             _i32([SIDE] * b, device), rows)
 
 
-def timed_entry(name, fn, ref, shape: str, reps: int, log) -> dict:
+def timed_entry(name, fn, ref, shape: str, reps: int, log,
+                keep: bool = False) -> dict:
     """A kernel (fn) against its plain version (ref) on the same inputs:
     exact, or it raises. ``ref(count)`` runs once, adds the band
     candidates it scans to ``count`` where it has a band (row and image:
     one sum and one add per channel step), and is timed by that run; the
-    kernel by CUDA events over reps calls after a warm-up."""
+    kernel by CUDA events over reps calls after a warm-up. ``keep``: the
+    plain version's output is returned too, as "want"."""
     import torch
 
     count = torch.zeros((), dtype=torch.int64, device="cuda")
@@ -493,8 +569,11 @@ def timed_entry(name, fn, ref, shape: str, reps: int, log) -> dict:
     ms = cuda_ms(fn, reps)
     log(f"  {name:5s} {shape:28s} kernel {ms:10.3f} ms  "
         f"plain {plain_ms:10.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=shape,
-                candidates=int(count))
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, shape=shape,
+               candidates=int(count))
+    if keep:
+        out["want"] = want
+    return out
 
 
 def time_kernels(device, log) -> dict[str, dict]:
@@ -587,7 +666,59 @@ def kernel_times(device) -> dict[str, float]:
         "image_adaptive": cuda_ms(
             lambda: image.image_rows(*img, adaptive=True), 3),
         **retry,
+        **(embedding_times(device) if "image_retry" in retry else {}),
     }
+
+
+def embedding_times(device) -> dict[str, float]:
+    """Embedding mode's per-row path in this tree or an earlier one
+    (kernel_times): the image kernel's retry variant on phase 6's failed
+    images (rows 1-511, from row 0's state) and on the give-up batch at bpp
+    3, at the cluster size it picks and, in a tree with the ladder, at
+    each of LADDER_TIMES ("_k<size>"), CUDA-event ms; and the best of two
+    whole embedding calls (``optimize_rgba_batch``) on phase 6's batch,
+    host wall ms."""
+    import inspect
+
+    import torch
+
+    from pngloss_tpu_torch.ops import image
+    from pngloss_tpu_torch.ops.edges import give_up_inputs
+    from pngloss_tpu_torch.ops.optimize_gpu import row_step, zero_carry
+    from pngloss_tpu_torch.pipeline import optimize_rgba_batch
+
+    rgba = embedding_batch(np.random.default_rng(EMBED_SEED))
+    b, bpp = N_IMAGES, 3
+    rows = torch.as_tensor(np.ascontiguousarray(rgba[..., :3]).reshape(
+        b, SIDE, SIDE * bpp), device=device)
+    ofreq, _, _, (_, _, ok) = speculate(rows, bpp, STRENGTH, device)
+    sel = (ok == 0).nonzero().squeeze(1)
+    n = len(sel)
+    s, wr = _i32([STRENGTH] * n, device), _i32([SIDE] * n, device)
+    sub = rows[sel].contiguous()
+    cb, _, _ = row_step(s, 2, sub[:, 0].reshape(n, SIDE, bpp).to(torch.int32),
+                        zero_carry(n, SIDE, bpp, device), ofreq[sel], wr)
+    args = (s, 2, wr, ofreq[sel], sub, cb.qprev, cb.e0, cb.e1, cb.hist)
+    gargs, flags = give_up_inputs(bpp, device)
+    sizes = [None]
+    if "k" in inspect.signature(image.image_rows).parameters:
+        sizes += list(LADDER_TIMES)
+    out = {}
+    for k in sizes:
+        kw, tag = ({}, "") if k is None else ({"k": k}, f"_k{k}")
+        out["image_retry_p6" + tag] = cuda_ms(lambda: image.image_rows(
+            *args, adaptive=True, retry=True, **kw), 2)
+        out["image_retry_give_up" + tag] = cuda_ms(lambda: image.image_rows(
+            *gargs, adaptive=True, retry=True, never_pass=flags, **kw), 5)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimize_rgba_batch(list(rgba), STRENGTH, use_row_filters=False,
+                            device=device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["embedding_call"] = min(walls)
+    return out
 
 
 PARENT_TIMES = r"""
@@ -818,11 +949,7 @@ def run_embedding(device, card: str, log):
     from pngloss_tpu_torch.reference import adaptive_filter_for_row
     from pngloss_tpu_torch.ops import image
     from pngloss_tpu_torch.ops.edges import rows_by_step
-    from pngloss_tpu_torch.ops.optimize_gpu import (
-        optimize_rows,
-        row_step,
-        zero_carry,
-    )
+    from pngloss_tpu_torch.ops.optimize_gpu import row_step, zero_carry
     from pngloss_tpu_torch.pipeline import optimize_rgba_batch
 
     rgba = embedding_batch(np.random.default_rng(EMBED_SEED))
@@ -837,6 +964,12 @@ def run_embedding(device, card: str, log):
                                  device=device)
     wall = time.perf_counter() - t0
     launches = read_counts("[6] optimize_rgba_batch", EMBED_KERNELS)
+    # row 0 is one launch of the row kernel's retry variant, rows 1..H-1
+    # one of the image kernel's (the ladder over the whole batch); no
+    # single row attempt, no speculation
+    if (launches["row"], launches["row_retry"], launches["image_adaptive"],
+            launches["image_retry"]) != (0, 1, 0, 1):
+        raise AssertionError(f"the embedding call launched {launches}")
     t0 = time.perf_counter()
     q2, f2 = optimize_rgba_batch(list(rgba), STRENGTH, use_row_filters=False,
                                  device=device)
@@ -845,17 +978,18 @@ def run_embedding(device, card: str, log):
         if not (np.array_equal(q1[i], q2[i]) and np.array_equal(f1[i], f2[i])):
             raise AssertionError(f"embedding run 2 differs on image {i}")
 
-    # the speculation and the fallback apart, on the same planes
+    # the images with a row that fails at full strength: the speculation
+    # (the adaptive variant, the JAX package's way) flags them
     rows = torch.as_tensor(rgba[..., :3].reshape(b, SIDE, SIDE * bpp),
                            device=device)
     start = torch.cuda.Event(enable_timing=True)
-    mid = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
     ofreq, c0, f0, (qr, fr, ok) = speculate(rows, bpp, STRENGTH, device)
-    mid.record()
+    end.record()
     ok = ok.cpu().numpy()
+    spec_ms = start.elapsed_time(end)
     bad, good = np.flatnonzero(ok == 0), np.flatnonzero(ok)
     log(f"  speculation ok per image: {ok.tolist()}")
     if not (len(bad) and len(good)):
@@ -865,53 +999,53 @@ def run_embedding(device, card: str, log):
     orig = rows.view(b, SIDE, SIDE, bpp).to(torch.int32)
     sel = torch.as_tensor(bad, device=device)
     fall = (s[sel], 2, orig[sel], ofreq[sel], wr[sel])
-    reset_counts()
-    qk, fk = optimize_rows(*fall)
-    end.record()
-    end.synchronize()
-    spec_ms, fall_ms = start.elapsed_time(mid), mid.elapsed_time(end)
-    fall_counts = read_counts("[6] the fallback", ("row_retry",
-                                                   "image_retry"))
 
-    # the fallback with the strength loop on the host: the row kernel's
-    # one-attempt variant once per attempt, the cost and the self-check in
-    # PyTorch. Rows and filters must agree (attempts: below).
+    # the failed images with the strength loop on the host: the row
+    # kernel's one-attempt variant once per attempt, the cost and the
+    # self-check in PyTorch
     reset_counts()
     t0 = time.perf_counter()
     qh, fh, tries_host = rows_by_step(*fall)
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     host_launches = read_counts("[6] the host loop", ("row",))["row"]
-    err = _max_err((qk, fk), (qh, fh))
-    if err:
-        raise AssertionError(f"the retry launch != the host loop on "
-                             f"the failed images: max abs err {err}")
 
-    # row 0 is one launch of the row kernel's retry variant, the batch's
-    # and the fallback's; the image kernel's retry variant once per
-    # fallback; never a single row attempt
+    # the retry variant on the failed images (all 511 rows, from row 0's
+    # state), the ladder at the cluster size it picks and at every size of
+    # LADDER_TIMES, against one run of its sequential plain version, which
+    # replays one attempt from a CUDA graph (~0.2 s each), and against the
+    # host loop: rows, filters and attempts per image; the rounds at k = 1
+    # are the attempts
     cb, _, first_tries = row_step(
         fall[0], 2, fall[2][:, 0].contiguous(),
         zero_carry(len(bad), SIDE, bpp, device), fall[3], fall[4])
-    if (fall_counts["row"], fall_counts["row_retry"],
-            fall_counts["image_retry"]) != (0, 1, 1):
-        raise AssertionError(f"the fallback launched {fall_counts}")
-    if (launches["row"], launches["row_retry"],
-            launches["image_retry"]) != (0, 2, 1):
-        raise AssertionError(f"the embedding call launched {launches}")
-
-    # the retry variant as the fallback launches it (all 511 rows of the
-    # failed images, from row 0's state) against its plain version, which
-    # replays one attempt from a CUDA graph (~0.2 s each), and against the
-    # host loop: rows, filters and attempts per image
     args = (fall[0], 2, fall[4], fall[3], rows[sel].contiguous(), cb.qprev,
             cb.e0, cb.e1, cb.hist)
+    chosen = image.ladder_size(len(bad), bpp, device)
     retry = timed_entry(
         "image_retry",
         lambda: image.image_rows(*args, adaptive=True, retry=True),
         lambda n: image.image_rows_retry_ref(*args, count=n),
         f"{len(bad)}x{SIDE}x{SIDE}x{bpp} (rows 1-{SIDE - 1} of the failed "
-        "images, embedding batch)", 2, log)
+        f"images, embedding batch; ladder k={chosen})", 2, log, keep=True)
+    want = retry.pop("want")
+    ladder = {}
+    for k in LADDER_TIMES:
+        rounds = torch.zeros(len(bad), dtype=torch.int32, device=device)
+        err = _max_err(image.image_rows(*args, adaptive=True, retry=True,
+                                        k=k, rounds=rounds), want)
+        if k == 1:
+            err = max(err, _max_err(rounds, want[2]))
+        if err:
+            raise AssertionError(f"the ladder at k={k} != its plain version "
+                                 f"on the failed images: max abs err {err}")
+        ms = cuda_ms(lambda: image.image_rows(*args, adaptive=True,
+                                              retry=True, k=k), 2)
+        ladder[k] = dict(ms=ms, rounds=rounds.tolist())
+        log(f"  ladder k={k:2d}: {ms:10.3f} ms, rounds per image "
+            f"{rounds.tolist()} ({max(rounds.tolist()) / (SIDE - 1):.3f} a "
+            f"row in the slowest), attempts {want[2].tolist()}; equal to "
+            "the plain version (rows, filters, attempts)")
     qr2, fr2, later_tries = image.image_rows(*args, adaptive=True, retry=True)
     tries = first_tries + later_tries
     err = max(_max_err((qr2, fr2), (qh[:, 1:], fh[:, 1:])),
@@ -920,33 +1054,19 @@ def run_embedding(device, card: str, log):
         raise AssertionError(f"the retry variant != the host loop "
                              f"on the failed images: max abs err {err}")
     retry.update(b=len(bad), attempts=int(later_tries.sum()),
-                 fallback_ms=fall_ms, fallback_attempts=tries.tolist(),
-                 host_loop_ms=host_s * 1e3)
+                 host_loop_ms=host_s * 1e3, k=chosen,
+                 rounds=ladder[chosen]["rounds"],
+                 ms_by_k={k: v["ms"] for k, v in ladder.items()})
     tries = tries.tolist()
-    log(f"  fallback, {len(bad)} images x {SIDE} rows: one retry launch "
-        f"{fall_ms:.3f} ms (row 0 by row_step, one launch, included), "
-        f"attempts per image {tries}; the host loop (strength_loop around "
-        f"row_attempt) {host_s * 1e3:.3f} ms, {host_launches} row-kernel "
-        "launches; equal: rows, filters, attempts")
+    log(f"  the failed images with the strength loop on the host "
+        f"(strength_loop around row_attempt): {host_s * 1e3:.3f} ms, "
+        f"{host_launches} row-kernel launches; equal to the ladder: rows, "
+        f"filters, attempts per image {tries}")
 
-    # the per-row path on every image, by the host loop: the speculation
-    # on the ok images, the entry point's output on all, and one retry
-    # launch over the whole batch must equal it
+    # the per-row path on every image, by the host loop: the entry point's
+    # output and the speculation on the ok images must equal it, and every
+    # row's filter must be libpng's MSAD choice
     qp, fp, tries_all = rows_by_step(s, 2, orig, ofreq, wr)
-    torch.cuda.synchronize()
-    start.record()
-    whole = optimize_rows(s, 2, orig, ofreq, wr)
-    end.record()
-    end.synchronize()
-    whole_ms = start.elapsed_time(end)
-    err = _max_err(whole, (qp, fp))
-    if err:
-        raise AssertionError(f"one retry launch over the batch != the host "
-                             f"loop: max abs err {err}")
-    log(f"  the per-row path on all {b} images (row 0, then one retry "
-        f"launch): {whole_ms:.3f} ms against speculation + fallback "
-        f"{spec_ms + fall_ms:.3f} ms; attempts per image "
-        f"{tries_all.tolist()}")
     qp, fp = qp.cpu().numpy(), fp.cpu().numpy()
     spec_q = torch.cat([c0.qprev[:, None], qr], 1).cpu().numpy()
     spec_f = torch.cat([f0[:, None], fr.long()], 1).cpu().numpy()
@@ -967,13 +1087,15 @@ def run_embedding(device, card: str, log):
                 raise AssertionError(f"image {i} row {y}: filter {f1[i][y]} "
                                      "is not libpng's MSAD choice")
     mp = b * SIDE * SIDE / 1e6
-    log(f"  embedding on {card}: {b} x {SIDE}x{SIDE} RGB at -s {STRENGTH}: "
-        f"run 1 {wall:.3f} s ({mp / wall:.3f} MP/s), run 2 {wall2:.3f} s "
-        f"({mp / wall2:.3f} MP/s)")
-    log(f"  speculation {spec_ms:.3f} ms (CUDA events: pre-pass, row 0, "
-        f"adaptive image kernel), fallback {fall_ms:.3f} ms for "
-        f"{len(bad)} images x {SIDE} rows, {max(tries)} row attempts in "
-        f"the slowest image ({max(tries) / SIDE:.3f} per row)")
+    log(f"  embedding on {card}: {b} x {SIDE}x{SIDE} RGB at -s {STRENGTH}, "
+        f"the ladder over the whole batch (k="
+        f"{image.ladder_size(b, bpp, device)}): run 1 {wall:.3f} s "
+        f"({mp / wall:.3f} MP/s), run 2 {wall2:.3f} s ({mp / wall2:.3f} "
+        f"MP/s); equal to the host loop on every image, attempts per image "
+        f"{tries_all.tolist()}")
+    log(f"  the speculation alone {spec_ms:.3f} ms (CUDA events: pre-pass, "
+        f"row 0, adaptive image kernel); {max(tries)} row attempts in the "
+        f"slowest failed image ({max(tries) / SIDE:.3f} per row)")
     log(f"  launches: {launches}")
 
     args = (s, 2, wr, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
@@ -983,6 +1105,93 @@ def run_embedding(device, card: str, log):
         f"{b}x{SIDE}x{SIDE}x{bpp} (rows 1-{SIDE - 1}, embedding batch)", 2,
         log)
     return launches, timing, retry, (rgba, q1, f1)
+
+
+def settle_speculation(device, card: str, log) -> dict:
+    """Phase 6b: embedding mode's two ways through rows 1..H-1, after the
+    pre-pass and row 0 they share, timed in turns (speculation, ladder,
+    ladder, speculation) on 16 and 132 smooth 512x512 RGB images (no image
+    fails the speculation; the 132 repeat the 16) and on phase 6's batch
+    (2 of 16 fail):
+      speculation: the adaptive variant over the batch, one wait for ok,
+        then the per-row path (row 0, the ladder) for the images that
+        failed;
+      ladder: the ladder over the whole batch at the cluster size it picks.
+    Host wall ms to the last output (synchronised); both give the same
+    rows and filters. Returns {batch: {"speculation": [ms, ms], "ladder":
+    [ms, ms], "k": ..., "failed": ...}}."""
+    import torch
+
+    from pngloss_tpu_torch.ops import hist, image
+    from pngloss_tpu_torch.ops.optimize_gpu import optimize_rows, row0
+
+    smooth = synthetic_rgb(np.random.default_rng(SEED + 7), N_IMAGES, SIDE,
+                           SIDE)
+    batches = {"16 smooth": smooth,
+               "132 smooth": np.resize(smooth, (132, SIDE, SIDE, 4)),
+               "phase 6": embedding_batch(np.random.default_rng(EMBED_SEED))}
+    bpp = 3
+    out = {}
+    for label, rgba in batches.items():
+        b = len(rgba)
+        rows = torch.as_tensor(np.ascontiguousarray(rgba[..., :3]).reshape(
+            b, SIDE, SIDE * bpp), device=device)
+        s, wr = _i32([STRENGTH] * b, device), _i32([SIDE] * b, device)
+        failed = []
+
+        def start():
+            ofreq = hist.original_frequencies(rows, bpp, wr)
+            c0, f0 = row0(s, 2, rows[:, 0].reshape(b, SIDE, bpp).to(
+                torch.int32), ofreq, wr)
+            return ofreq, c0, f0
+
+        def speculation():
+            ofreq, c0, f0 = start()
+            qr, fr, ok = image.image_rows(s, 2, wr, ofreq, rows, c0.qprev,
+                                          c0.e0, c0.e1, c0.hist,
+                                          adaptive=True)
+            q = torch.cat([c0.qprev[:, None], qr], 1)
+            f = torch.cat([f0[:, None], fr.long()], 1)
+            bad = (ok == 0).nonzero().squeeze(1)
+            failed[:] = bad.tolist()
+            if bad.numel():
+                q[bad], f[bad] = optimize_rows(
+                    s[bad], 2, rows[bad].view(-1, SIDE, SIDE, bpp).to(
+                        torch.int32), ofreq[bad], wr[bad])
+            return q, f
+
+        def ladder():
+            ofreq, c0, f0 = start()
+            qr, fr, _ = image.image_rows(s, 2, wr, ofreq, rows, c0.qprev,
+                                         c0.e0, c0.e1, c0.hist,
+                                         adaptive=True, retry=True)
+            return (torch.cat([c0.qprev[:, None], qr], 1),
+                    torch.cat([f0[:, None], fr.long()], 1))
+
+        ladder()                                            # warm-up
+        rec = {"speculation": [], "ladder": []}
+        got = {}
+        for way in ("speculation", "ladder", "ladder", "speculation"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got.setdefault(way, (speculation if way == "speculation"
+                                 else ladder)())
+            torch.cuda.synchronize()
+            rec[way].append((time.perf_counter() - t0) * 1e3)
+        err = _max_err(got["speculation"], got["ladder"])
+        if err:
+            raise AssertionError(f"[6b] {label}: the ladder != speculation "
+                                 f"+ fallback: max abs err {err}")
+        rec.update(k=image.ladder_size(b, bpp, device), failed=failed)
+        spec, lad = np.mean(rec["speculation"]), np.mean(rec["ladder"])
+        log(f"  {label} ({b} x {SIDE}x{SIDE} RGB, -s {STRENGTH}, images "
+            f"failing the speculation {failed}) on {card}: speculation "
+            f"{rec['speculation'][0]:.3f}, {rec['speculation'][1]:.3f} ms; "
+            f"ladder (k={rec['k']}) {rec['ladder'][0]:.3f}, "
+            f"{rec['ladder'][1]:.3f} ms; ladder / speculation "
+            f"{lad / spec:.4f}; equal rows and filters")
+        out[label] = rec
+    return out
 
 
 def run_main_path(device, card: str, log):
@@ -1722,6 +1931,44 @@ def run_dispatch(device, parent, card: str, image_ms: float, log) -> dict:
         f"{len(pending)} buckets queued in {queued * 1e3:.3f} ms behind a "
         f"{DISPATCH_SPIN_CYCLES} cycle spin on each of the {len(spins)} "
         f"streams, all still running at its return")
+
+    # the same in embedding mode (every row's strength loop in the
+    # ladder): no host sync either, and the planes and filters of a run
+    # without the spin
+    want = [pipeline.collect_bucket(p) for p in pipeline.dispatch_buckets(
+        works, bpps, STRENGTH, use_row_filters=False, device=device)]
+    spins = []
+    for slot in range(mesh.STREAMS):
+        with mesh.bucket_stream(device, slot):
+            torch.cuda._sleep(DISPATCH_SPIN_CYCLES)
+            spins.append(torch.cuda.Event())
+            spins[-1].record()
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        pending = pipeline.dispatch_buckets(works, bpps, STRENGTH,
+                                            use_row_filters=False,
+                                            device=device)
+        queued = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    running = sum(not e.query() for e in spins)
+    if running != len(spins):
+        raise AssertionError(f"[13] embedding dispatch_buckets returned "
+                             f"after {len(spins) - running} of the spins "
+                             "ended")
+    got = [pipeline.collect_bucket(p) for p in pending]
+    counts = read_counts("[13] embedding dispatch_buckets",
+                         ("hist", "row_retry", "image_retry"))
+    for (qs, fs), (qw, fw) in zip(got, want):
+        if not all(np.array_equal(a, x) for a, x in zip(qs + fs, qw + fw)):
+            raise AssertionError("[13] embedding dispatch behind the spins "
+                                 "differs from the run without")
+    log(f"  embedding mode, dispatch_buckets under set_sync_debug_mode("
+        f"'error'): {len(pending)} buckets queued in {queued * 1e3:.3f} ms "
+        f"behind the same spins, all still running at its return; equal "
+        f"planes and filters; launches {counts}")
     return runs[pool_label][0]["launches"]
 
 
@@ -1758,7 +2005,7 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("    " + line.strip())
 
-    errs = check_kernels(device)
+    errs = check_kernels(device, log)
     log(f"[3] kernels == plain versions on small shapes: {errs}")
     timing = time_kernels(device, log)
     if args.parent:
@@ -1783,6 +2030,9 @@ def main(argv=None) -> int:
      embed) = run_embedding(device, card, log)
     for name in ("image_adaptive", "image_retry"):
         launches[name] = embed_launches[name]
+
+    log("[6b] speculation against the ladder")
+    settle_speculation(device, card, log)
 
     for label, phase in (
             ("[7] CLI", lambda: run_cli(device, pngs, want, small, log)),
@@ -1810,8 +2060,8 @@ def main(argv=None) -> int:
             max_abs_err=max(errs[name], t["max_abs_err"]), ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, shape=t["shape"],
-            **{k: t[k] for k in ("attempts", "fallback_ms",
-                                 "fallback_attempts", "host_loop_ms")
+            **{k: t[k] for k in ("attempts", "host_loop_ms", "k", "rounds",
+                                 "ms_by_k")
                if k in t}))
         log(f"  {name:14s} launches {launches[name]:5d}  kernel "
             f"{t['ms']:10.3f} ms  bound {bound_ms:.6f} ms ({bound_by}), "

@@ -42,8 +42,8 @@ def optimize_batch_auto(rows, strength, bleed: int = 2, *, bpp: int, device,
     (ragged batching). use_row_filters=False is embedding mode: every row
     must pass libpng's MSAD self-check. Returns ((B, H, W*bpp) uint8,
     (B, H) int8) tensors on ``device``. Host arrays go to a CUDA device
-    from pinned memory without blocking; in CLI mode the call only queues
-    work on the current stream and returns without waiting for the card.
+    from pinned memory without blocking; the call only queues work on
+    the current stream and returns without waiting for the card.
     """
     device = resolve_device(device)
     rows = to_device(rows, device)

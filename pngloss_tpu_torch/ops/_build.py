@@ -46,8 +46,10 @@ _SIGNATURES = {
                         _P, _P, _P, _P, _I, _I, _I, _P),
     "plk_row_retry": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "plk_image_rows": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "plk_image_rows": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _P),
+    "plk_ladder_clusters": (_I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -7,8 +7,8 @@ through a separate loop. These cases reach each of those edges: rows wider
 than the warp and than shared memory would hold, bands over 32 lanes
 (s 255), extreme bleeds with negative dither, a channel's symbol inside
 the next channel's band (equal channels), transparent pixels at bpp 2 and
-4, and ragged widths. The image kernel's retry variant loops around the
-pixel chain with a strength that falls row by row: its cases (``retry-``,
+4, and ragged widths. The image kernel's retry variant (the ladder) runs
+the pixel chain at strengths that fall row by row: its cases (``retry-``,
 noise rows that fail the MSAD self-check at full strength) start at
 strength 32, so a retry at 31 changes from the wide loop to the narrow
 one, at 255, at 2, 1 and 0, and fail on every row. ``chip_smoke.py``

@@ -8,17 +8,23 @@ variants:
 
   * CLI mode (``adaptive=False``): only row 0 runs the MSAD self-check, so
     every row's attempt is final;
-  * embedding mode (``adaptive=True``, the speculation): every row runs the
+  * embedding mode's speculation (``adaptive=True``): every row runs the
     MSAD self-check at full strength, a failing candidate costs
     ``FAIL_COST``, and ``ok`` flags each image where some row had no
     passing filter. Such a row carries on with filter 0, as the TPU kernel
-    does; its image needs the per-row fallback (``optimize_gpu``);
+    does;
   * embedding mode's per-row path (``adaptive=True, retry=True``), the
     counterpart of the scan over rows with a while_loop over the strength
     in ``pngloss_tpu/ops/optimize_pallas.py:optimize_batch_pallas_t``:
     every row starts at the image's full strength and runs again one
     strength lower while no filter passes; at strength 0 the minimum true
-    cost wins. It never fails, and reports the row attempts of each image.
+    cost wins. It never fails, and reports the row attempts of each image
+    as that sequential loop counts them. On the card it runs as a ladder:
+    a cluster of k blocks per image tries k strengths of a row at once
+    (``ladder_size`` picks k), and keeps the highest that passes.
+
+Every variant stops at each image's last real row (``h_real``): padded
+rows neither clear ``ok`` nor retry, and come out as 0.
 
 At strength 0 a real row always has a passing filter (the 5 candidates are
 then one row, and the MSAD choice is one of them); the test-only
@@ -26,10 +32,14 @@ then one row, and the MSAD choice is one of them); the test-only
 and the retry variant alike, so that the give-up rule runs.
 
 On a CUDA tensor ``image_rows`` launches ``csrc/image.cu``; on a CPU tensor
-it runs ``image_rows_ref`` or ``image_rows_retry_ref``.
+it runs ``image_rows_ref`` or ``image_rows_ladder_ref``.
+``image_rows_retry_ref`` is the retry variant's sequential plain version,
+``strength_loop`` one strength at a time, which the ladder is held to.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -45,17 +55,30 @@ from pngloss_tpu_torch.ops.optimize import (
     strength_loop,
 )
 
-# launches of the kernel's CLI, adaptive and retry variants
+# launches of the kernel's CLI, adaptive and retry (ladder) variants
 LAUNCHES = 0
 ADAPTIVE_LAUNCHES = 0
 RETRY_LAUNCHES = 0
+# the ladder's cluster sizes, largest first; 8 is the largest portable
+# cluster size and the most the kernel takes
+LADDER_SIZES = (8, 4, 2, 1)
+MAX_RUNGS = 8
+# (device index, bpp) -> {k: clusters of k the card keeps resident}
+_RESIDENT: dict = {}
+
+
+def _heights(h_real, b: int, h: int, device) -> torch.Tensor:
+    """(B,) int32 real heights within 1..H; every row real where None."""
+    if h_real is None:
+        return torch.full((b,), h, dtype=torch.int32, device=device)
+    return h_real.to(device=device, dtype=torch.int32).clamp(1, h)
 
 
 def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
                    hist0, adaptive: bool = False, count=None,
-                   never_pass=None):
+                   never_pass=None, h_real=None):
     """Plain version; arguments as for ``image_rows``; ``count`` as for
-    ``quantize_row``, over rows 1..H-1.
+    ``quantize_row``, over rows 1..H-1 (padded rows too).
 
     The row step (the 5 candidates, and with ``adaptive`` their MSAD
     self-check) reads and writes fixed buffers. On a CUDA tensor it is
@@ -65,9 +88,10 @@ def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
     b, h, wb = rows.shape
     w, bpp = qprev0.shape[1], qprev0.shape[2]
     dev = rows.device
-    qrows = torch.empty((b, h - 1, w, bpp), dtype=torch.int32, device=dev)
-    filts = torch.empty((b, h - 1), dtype=torch.int32, device=dev)
+    qrows = torch.zeros((b, h - 1, w, bpp), dtype=torch.int32, device=dev)
+    filts = torch.zeros((b, h - 1), dtype=torch.int32, device=dev)
     ok = torch.ones(b, dtype=torch.int32, device=dev)
+    hr = _heights(h_real, b, h, dev)
     if h >= 2:
         orig = rows.view(b, h, w, bpp).to(torch.int32)
         orow, qprev, e0, e1, hist = (t.clone() for t in
@@ -89,24 +113,26 @@ def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
             q5, h5, e0n, e1n, passing = step()
             cost = row_cost(q5, hist, h5, qprev, orow, orig[:, y - 1],
                             w_real)
+            live = hr > y
             if adaptive:
                 cost = adaptive_cost(cost, passing)
-                ok &= passing.any(1).to(torch.int32)
+                ok &= (passing.any(1) | ~live).to(torch.int32)
             best = first_min(cost)
             for buf, cand in ((qprev, q5), (hist, h5), (e0, e0n),
                               (e1, e1n)):
                 buf.copy_(pick(cand, best))
-            qrows[:, y - 1] = qprev
-            filts[:, y - 1] = best
+            qrows[:, y - 1] = torch.where(live[:, None, None], qprev, 0)
+            filts[:, y - 1] = torch.where(live, best, 0)
     return (qrows, filts, ok) if adaptive else (qrows, filts)
 
 
 def image_rows_retry_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
-                         e10, hist0, count=None, never_pass=None):
-    """Plain version of the retry variant; arguments as for ``image_rows``;
-    ``count`` as for ``quantize_row``, over every attempt of rows 1..H-1.
-    Returns the winner rows, their filter ids and the row attempts each
-    image took (B,) int32.
+                         e10, hist0, count=None, never_pass=None,
+                         h_real=None):
+    """Sequential plain version of the retry variant, one strength at a
+    time; arguments as for ``image_rows``; ``count`` as for
+    ``quantize_row``, over every attempt of rows 1..H-1. Returns the winner
+    rows, their filter ids and the row attempts each image took (B,) int32.
 
     One attempt (the 5 candidates at the strengths in a fixed buffer) is
     captured once in a CUDA graph on a CUDA tensor, as in
@@ -114,9 +140,10 @@ def image_rows_retry_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
     b, h, wb = rows.shape
     w, bpp = qprev0.shape[1], qprev0.shape[2]
     dev = rows.device
-    qrows = torch.empty((b, h - 1, w, bpp), dtype=torch.int32, device=dev)
-    filts = torch.empty((b, h - 1), dtype=torch.int32, device=dev)
+    qrows = torch.zeros((b, h - 1, w, bpp), dtype=torch.int32, device=dev)
+    filts = torch.zeros((b, h - 1), dtype=torch.int32, device=dev)
     tries = torch.zeros(b, dtype=torch.int32, device=dev)
+    hr = _heights(h_real, b, h, dev)
     if h >= 2:
         orig = rows.view(b, h, w, bpp).to(torch.int32)
         orow, qprev, e0, e1, hist, s_now = (
@@ -136,16 +163,152 @@ def image_rows_retry_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
             return step()
 
         for y in range(1, h):
+            live = hr > y
+            if not bool(live.any()):
+                break
             orow.copy_(orig[:, y])
             state, best, n = strength_loop(attempt, s, orow, qprev,
                                            orig[:, y - 1], e0, e1, hist,
-                                           w_real, never_pass)
+                                           w_real, never_pass, live)
             for buf, won in zip((qprev, hist, e0, e1), state):
                 buf.copy_(won)
-            qrows[:, y - 1] = qprev
-            filts[:, y - 1] = best
+            qrows[:, y - 1] = torch.where(live[:, None, None], qprev, 0)
+            filts[:, y - 1] = torch.where(live, best, 0)
             tries += n
     return qrows, filts, tries
+
+
+def image_rows_ladder_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
+                          e10, hist0, k: int = 1, never_pass=None,
+                          h_real=None, rounds=None):
+    """Plain version of the ladder (the retry variant on the card);
+    arguments as for ``image_rows``. Each row runs in rounds: round j tries
+    the k strengths s - j*k - r (r < k) from the same state, a strength
+    below 0 passing nothing, and keeps the highest that passes; where none
+    does and the round reached strength 0, the strength-0 attempt with its
+    minimum true cost. Returns the winner rows, their filter ids and the
+    attempts the sequential loop would take (s - s_win + 1 a row), which
+    equal ``image_rows_retry_ref``'s for every k; ``rounds`` (B,) int32,
+    where given, gets the rounds each image took. Strengths below 0 count
+    as 0.
+
+    One round (the k attempts of every image as one batch of B*k, and
+    their self-check) is captured once in a CUDA graph on a CUDA tensor,
+    as in ``image_rows_ref``."""
+    if not 1 <= k <= MAX_RUNGS:
+        raise ValueError(f"k must be 1..{MAX_RUNGS}, got {k}")
+    b, h, wb = rows.shape
+    w, bpp = qprev0.shape[1], qprev0.shape[2]
+    dev = rows.device
+    i32 = torch.int32
+    qrows = torch.zeros((b, h - 1, w, bpp), dtype=i32, device=dev)
+    filts = torch.zeros((b, h - 1), dtype=i32, device=dev)
+    tries = torch.zeros(b, dtype=i32, device=dev)
+    taken = torch.zeros(b, dtype=i32, device=dev)
+    hr = _heights(h_real, b, h, dev)
+    s = s.to(i32).clamp(min=0)
+    if h >= 2:
+        orig = rows.view(b, h, w, bpp).to(i32)
+
+        def rungs(t):
+            """(B, ...) -> (B*k, ...): each image's row k times."""
+            return t.repeat_interleave(k, 0)
+
+        orow, oprev, qprev, e0, e1, hist, s_now = (
+            rungs(t) for t in (orig[:, 1], orig[:, 0], qprev0, e00, e10,
+                               hist0, s))
+        ofreq_k, w_k = rungs(ofreq), rungs(w_real)
+        flags_k = None if never_pass is None else rungs(never_pass)
+
+        def attempt():
+            q5, h5, e0n, e1n = quantize_row(s_now, bleed, orow, qprev, e0,
+                                            e1, hist, ofreq_k, w_k)
+            return q5, h5, e0n, e1n, self_check(q5, qprev, w_k, flags_k)
+
+        step = _replayable(attempt, dev)
+        rung = torch.arange(k, dtype=i32, device=dev)
+        first_lane = torch.arange(b, device=dev) * k
+        for y in range(1, h):
+            done = hr <= y
+            if bool(done.all()):
+                break
+            orow.copy_(rungs(orig[:, y]))
+            oprev.copy_(rungs(orig[:, y - 1]))
+            j = 0
+            while True:
+                strengths = s[:, None] - j * k - rung[None]          # (B, k)
+                s_now.copy_(strengths.clamp(min=0).reshape(-1))
+                q5, h5, e0n, e1n, passing = step()
+                cost = row_cost(q5, hist, h5, qprev, orow, oprev, w_k)
+                passing = passing & (strengths >= 0).reshape(-1, 1)
+                passed = passing.view(b, k, NUM_FILTERS).any(2)     # (B, k)
+                some = passed.any(1)
+                give_up = ~some & (s - j * k - (k - 1) <= 0)
+                # the lowest passing rung, else the strength-0 rung
+                win = torch.where(some, passed.to(i32).argmax(1),
+                                  (s - j * k).long())
+                new = ~done & (some | give_up)
+                lane = first_lane + win.clamp(0, k - 1)
+                pw = passing[lane]
+                best = first_min(adaptive_cost(
+                    cost[lane], pw | ~pw.any(1, keepdim=True)))
+                won = [pick(t[lane], best) for t in (q5, h5, e0n, e1n)]
+                for buf, new_t in zip((qprev, hist, e0, e1), won):
+                    keep = rungs(new).view(-1, *([1] * (buf.dim() - 1)))
+                    buf.copy_(torch.where(keep, rungs(new_t), buf))
+                qrows[:, y - 1] = torch.where(new[:, None, None], won[0],
+                                              qrows[:, y - 1])
+                filts[:, y - 1] = torch.where(new, best.to(i32),
+                                              filts[:, y - 1])
+                tries += torch.where(new, j * k + win + 1, 0).to(i32)
+                taken += torch.where(new, j + 1, 0).to(i32)
+                done = done | new
+                if bool(done.all()):
+                    break
+                j += 1
+    if rounds is not None:
+        rounds.copy_(taken)
+    return qrows, filts, tries
+
+
+def pick_ladder(b: int, resident: dict, sms: int) -> int:
+    """The ladder's cluster size for ``b`` images: the largest k of
+    LADDER_SIZES for which the card keeps all b clusters of k blocks
+    resident at once (``resident[k]``, cudaOccupancyMaxActiveClusters) and
+    every block can have an SM of its own (b * k <= ``sms``); else 1."""
+    for k in LADDER_SIZES:
+        if resident.get(k, 0) >= b and b * k <= sms:
+            return k
+    return 1
+
+
+def resident_clusters(bpp: int, device) -> dict:
+    """{k: the most clusters of k blocks of the ladder at ``bpp`` that
+    ``device`` keeps resident at once}, for k in LADDER_SIZES, queried
+    once per device and bpp."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    key = (idx, bpp)
+    if key not in _RESIDENT:
+        lib = _build.library()
+        out = {}
+        with torch.cuda.device(idx):
+            for k in LADDER_SIZES:
+                n = ctypes.c_int(0)
+                _build.check(lib.plk_ladder_clusters(k, bpp,
+                                                     ctypes.addressof(n)),
+                             "plk_ladder_clusters")
+                out[k] = n.value
+        _RESIDENT[key] = out
+    return _RESIDENT[key]
+
+
+def ladder_size(b: int, bpp: int, device) -> int:
+    """``pick_ladder`` for ``b`` images at ``bpp`` on a CUDA ``device``."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    return pick_ladder(b, resident_clusters(bpp, idx), sms)
 
 
 def _replayable(fn, device):
@@ -172,7 +335,8 @@ def _replayable(fn, device):
 
 
 def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
-               adaptive: bool = False, retry: bool = False, never_pass=None):
+               adaptive: bool = False, retry: bool = False, never_pass=None,
+               h_real=None, k=None, rounds=None):
     """s, w_real (B,) int32; ofreq (B, 5, 256) int32; rows (B, H, W*bpp)
     uint8 originals of the whole images; the row-0 winner state: qprev0
     (B, W, bpp), e00, e10 (B, W+5, 4), hist0 (B, 256), all int32.
@@ -181,10 +345,15 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
     image where some row had no filter passing the MSAD self-check; with
     ``adaptive`` and ``retry`` instead attempts (B,) int32, the row
     attempts each image took (rows, when every row passed at full
-    strength). never_pass (B,) int32, test-only (None in every production
+    strength). h_real (B,) int32, where given: each image's real height;
+    rows at and after it are not run and come out as 0 (None: every row
+    is real). never_pass (B,) int32, test-only (None in every production
     call), with ``adaptive``: every filter fails the self-check on every
-    row of the images where it is not 0. A CUDA tensor launches the kernel;
-    a CPU tensor runs the plain version."""
+    row of the images where it is not 0. With ``retry``: ``k``, the
+    ladder's strengths tried at once (None: ``ladder_size`` on the card, 1
+    on the CPU), and ``rounds`` (B,) int32, where given, gets the rounds
+    each image took. A CUDA tensor launches the kernel; a CPU tensor runs
+    the plain version."""
     global LAUNCHES, ADAPTIVE_LAUNCHES, RETRY_LAUNCHES
     if retry and not adaptive:
         raise ValueError("retry needs adaptive: only the MSAD self-check "
@@ -192,21 +361,29 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
     if never_pass is not None and not adaptive:
         raise ValueError("never_pass needs adaptive: only the MSAD "
                          "self-check can fail a row")
+    if (k is not None or rounds is not None) and not retry:
+        raise ValueError("k and rounds are the retry variant's")
     if _build.route(rows) == "cpu":
         if retry:
-            return image_rows_retry_ref(s, bleed, w_real, ofreq, rows,
-                                        qprev0, e00, e10, hist0,
-                                        never_pass=never_pass)
+            return image_rows_ladder_ref(s, bleed, w_real, ofreq, rows,
+                                         qprev0, e00, e10, hist0,
+                                         1 if k is None else k, never_pass,
+                                         h_real, rounds)
         return image_rows_ref(s, bleed, w_real, ofreq, rows, qprev0, e00,
-                              e10, hist0, adaptive, never_pass=never_pass)
+                              e10, hist0, adaptive, never_pass=never_pass,
+                              h_real=h_real)
     b, h, wb = rows.shape
     w, bpp = qprev0.shape[1], qprev0.shape[2]
     if h < 2 or w * bpp != wb or not 1 <= bpp <= 4 or bleed < 1:
         raise ValueError(f"bad shape {tuple(rows.shape)}, bpp {bpp} or "
                          f"bleed {bleed}")
     i32 = torch.int32
+    dev = rows.device
+    if h_real is None:
+        h_real = torch.full((b,), h, dtype=i32, device=dev)
     _build.require(rows, "rows", torch.uint8, (b, h, wb))
     for t, name, shape in ((s, "s", (b,)), (w_real, "w_real", (b,)),
+                           (h_real, "h_real", (b,)),
                            (ofreq, "ofreq", (b, NUM_FILTERS, 256)),
                            (qprev0, "qprev0", (b, w, bpp)),
                            (e00, "e00", (b, w + 5, 4)),
@@ -215,30 +392,41 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
         _build.require(t, name, i32, shape)
     if never_pass is not None:
         _build.require(never_pass, "never_pass", i32, (b,))
+    if rounds is not None:
+        _build.require(rounds, "rounds", i32, (b,))
     for t, name in ((e00, "e00"), (e10, "e10")):
         _build.require_aligned(t, name)
-    dev = rows.device
+    if not retry:
+        k = 1
+    elif k is None:
+        k = ladder_size(b, bpp, dev)
+    elif not 1 <= k <= MAX_RUNGS:
+        raise ValueError(f"k must be 1..{MAX_RUNGS}, got {k}")
     qrows = torch.empty((b, h - 1, w, bpp), dtype=i32, device=dev)
     filt = torch.empty((b, h - 1), dtype=i32, device=dev)
-    # scratch: two sets of the 5 candidates' rows and next dither rows;
-    # each row writes one set and reads the winner's from the other
-    cand = torch.empty((2, b, NUM_FILTERS, w, bpp), dtype=i32, device=dev)
-    e0n5 = torch.empty((2, b, NUM_FILTERS, w + 5, 4), dtype=i32, device=dev)
+    # scratch: two sets of the k rungs' 5 candidates' rows and next dither
+    # rows; each row writes one set and reads the winner's from the other
+    cand = torch.empty((2, b, k, NUM_FILTERS, w, bpp), dtype=i32, device=dev)
+    e0n5 = torch.empty((2, b, k, NUM_FILTERS, w + 5, 4), dtype=i32,
+                       device=dev)
     e1n5 = torch.empty_like(e0n5)
     ok = (torch.empty(b, dtype=i32, device=dev)
           if adaptive and not retry else None)
     attempts = torch.empty(b, dtype=i32, device=dev) if retry else None
     lib = _build.library()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         _build.check(lib.plk_image_rows(
-            s.data_ptr(), bleed, w_real.data_ptr(), ofreq.data_ptr(),
-            rows.data_ptr(), qprev0.data_ptr(), e00.data_ptr(),
-            e10.data_ptr(), hist0.data_ptr(), qrows.data_ptr(),
-            filt.data_ptr(), None if ok is None else ok.data_ptr(),
-            None if attempts is None else attempts.data_ptr(),
-            None if never_pass is None else never_pass.data_ptr(),
-            cand.data_ptr(), e0n5.data_ptr(), e1n5.data_ptr(), b, h, w, bpp,
-            _build.stream_ptr(rows)), "plk_image_rows")
+            s.data_ptr(), bleed, w_real.data_ptr(), h_real.data_ptr(),
+            ofreq.data_ptr(), rows.data_ptr(), qprev0.data_ptr(),
+            e00.data_ptr(), e10.data_ptr(), hist0.data_ptr(),
+            qrows.data_ptr(), filt.data_ptr(), ptr(ok), ptr(attempts),
+            ptr(rounds), ptr(never_pass), cand.data_ptr(), e0n5.data_ptr(),
+            e1n5.data_ptr(), b, h, w, bpp, k, _build.stream_ptr(rows)),
+            "plk_image_rows")
     if retry:
         RETRY_LAUNCHES += 1
         return qrows, filt, attempts

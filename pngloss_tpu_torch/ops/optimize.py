@@ -299,7 +299,7 @@ def first_min(cost: torch.Tensor) -> torch.Tensor:
 
 
 def strength_loop(attempt, s, orow, qprev, oprev, e0, e1, hist, w_real,
-                  never_pass=None):
+                  never_pass=None, live=None):
     """One row that must pass the MSAD self-check, from the state
     (qprev, oprev, e0, e1, hist) the previous row left: images with no
     passing filter retry at strength s-1; at s <= 0 the minimum true cost
@@ -307,14 +307,18 @@ def strength_loop(attempt, s, orow, qprev, oprev, e0, e1, hist, w_real,
     ``attempt(s)`` runs one attempt of the row at strengths s (B,) and
     returns what ``quantize_row`` returns. Each image's result is its own
     first successful attempt, whatever the rest of the batch needs. One
-    host sync per attempt. ``never_pass`` as for ``self_check``.
+    host sync per attempt. ``never_pass`` as for ``self_check``. ``live``
+    (B,) bool, where given: the images for which the row is real; the
+    others (padded rows of a ragged batch) keep their state, filter 0 and
+    0 attempts.
 
     Returns the winner's (qrow, hist, e0n, e1n), its filter id (B,) int64
     and the attempts each image took (B,) int32."""
     b = orow.shape[0]
     dev = orow.device
     s = s.clone()
-    found = torch.zeros(b, dtype=torch.bool, device=dev)
+    found = (torch.zeros(b, dtype=torch.bool, device=dev) if live is None
+             else ~live)
     best = torch.zeros(b, dtype=torch.int64, device=dev)
     tries = torch.zeros(b, dtype=torch.int32, device=dev)
     state = (qprev, hist, e0, e1)

@@ -11,18 +11,19 @@ same-shaped (possibly padded) working-format planes:
      tensors the strength loop runs inside one launch of the row kernel, as
      the JAX package runs it inside its device program;
   3. rows 1..H-1 through ``image`` in one launch. In CLI mode
-     (``use_row_filters=True``) only row 0 can fail, so this is final. In
-     embedding mode every row runs the MSAD self-check: the image kernel
-     speculates at full strength and flags each image where some row had
-     no passing filter; only those images re-run through the per-row path
-     (``optimize_rows``: row 0 through step 2, then the rows after it in
-     one launch of the image kernel's retry variant, which runs the
-     strength loop of every row on the device), and their results replace
-     the speculation's.
+     (``use_row_filters=True``) only row 0 can fail, so one attempt a row
+     is final. In embedding mode every row must pass the MSAD self-check:
+     the image stage's retry variant runs every row's strength loop over
+     the whole batch (on the card a ladder: a thread-block cluster per
+     image tries k strengths of a row at once). The JAX package speculates
+     at full strength instead and re-runs the images with a failing row
+     through its per-row path; on an H100 the ladder over the whole batch
+     took less time than the speculation alone, on batches with and
+     without failing images (PERF.md), so the port runs no speculation.
+     ``optimize_rows`` is that per-row path from any row.
 
-In CLI mode nothing here reads a device value, so a call on CUDA tensors
-only queues work on the current stream: the host never waits for the
-card. Embedding mode waits once, for the speculation's ``ok``.
+Nothing here reads a device value, so a call on CUDA tensors only queues
+work on the current stream: the host never waits for the card.
 
 An image one row high runs step 2 alone. The kernels compare the adaptive
 frequency alone in 32 bits and then a key built from the rank of the
@@ -62,11 +63,14 @@ def to_device(a, device) -> torch.Tensor:
 
 def bytes_per_image(h: int, w: int, bpp: int) -> int:
     """Device bytes one image of a CUDA batch holds at once: the uint8
-    plane, the int32 winner rows, the uint8 output, the per-row path's
-    int32 originals and rows and the uint8 originals its kernel reads
-    (embedding mode's fallback), and the 5 candidates' rows and dither
-    rows (a row attempt's outputs, and the image kernel's two sets of
-    scratch)."""
+    plane, the int32 winner rows, the uint8 output, 9 bytes a sample to
+    spare (the per-row path's int32 originals and rows and its uint8
+    originals, where a caller runs it), and the 5 candidates' rows and
+    dither rows (a row attempt's outputs, and the image kernel's two sets
+    of scratch). The ladder's further rungs take scratch rows of their own
+    only while the batch leaves SMs idle (batch x rungs <= SMs), at most
+    that many rows' worth in all, which the memory share leaves room
+    for."""
     wb = w * bpp
     return (h * wb * (1 + 4 + 1 + 4 + 4 + 1)
             + 4 * 5 * 3 * (wb + 2 * 4 * (w + 5)) + 8192)
@@ -141,21 +145,12 @@ def _optimize_chunk(rows, strength, bleed: int, bpp: int, w_real, h_real,
     q[:, 0] = c0.qprev.to(torch.uint8)
     f[:, 0] = f0.to(torch.int8)
     if h > 1:
-        qrows, filt, *ok = image_op.image_rows(
+        embed = not use_row_filters
+        qrows, filt, *_ = image_op.image_rows(
             strength, bleed, w_real, ofreq, rows, c0.qprev, c0.e0, c0.e1,
-            c0.hist, adaptive=not use_row_filters)
+            c0.hist, adaptive=embed, retry=embed, h_real=h_real)
         q[:, 1:] = qrows.to(torch.uint8)
         f[:, 1:] = filt.to(torch.int8)
-        if ok:
-            # embedding mode: the images where some row had no passing
-            # filter at full strength re-run through the per-row path
-            bad = (ok[0] == 0).nonzero().squeeze(1)
-            if bad.numel():
-                orig = rows[bad].view(-1, h, w, bpp).to(torch.int32)
-                qb, fb = optimize_rows(strength[bad], bleed, orig,
-                                       ofreq[bad], w_real[bad])
-                q[bad] = qb.to(torch.uint8)
-                f[bad] = fb.to(torch.int8)
     return q.view(b, h, wb), f
 
 

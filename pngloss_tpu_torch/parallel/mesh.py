@@ -7,12 +7,10 @@ through ``optimize_batch_auto`` on its own device, and the results are
 gathered in batch order.
 
 A mesh is a tuple of ``torch.device``s (``data_mesh``). Each distinct
-device gets its own host thread. In CLI mode a shard only queues work on
-its device and returns without waiting for it; embedding mode waits for
-the speculation's ``ok``, which on one thread would run the shards one
-after another. Repeated entries, such as ``("cpu",) * 3`` or
-``("cuda:0", "cuda:0")``, are allowed; they run as separate shards, in
-order, in their device's thread.
+device gets its own host thread. A shard only queues work on its device
+and returns without waiting for it. Repeated entries, such as
+``("cpu",) * 3`` or ``("cuda:0", "cuda:0")``, are allowed; they run as
+separate shards, in order, in their device's thread.
 
 Each CUDA device keeps a small pool of streams (``STREAMS``) for the
 pipeline's shape buckets: a call given a ``slot`` runs its whole device

@@ -8,7 +8,7 @@ pad ladder, each bucket is optimized in one call on ``device`` (default
 ``"cuda"``; nothing runs on the CPU unless ``device="cpu"``), or split
 over the devices of ``mesh`` (``parallel.data_mesh``), with the real sizes
 as per-image masks, and host DEFLATE drains finished buckets on a thread
-pool. On CUDA the dispatch never waits for the card in CLI mode: each
+pool. On CUDA the dispatch never waits for the card, in either mode: each
 bucket's upload (from pinned memory), kernels and copies back into pinned
 host memory are queued on one stream of its device's small pool
 (``parallel.mesh.bucket_stream``), the buckets longest chain first, so
@@ -184,9 +184,8 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
 
     The buckets are dispatched in ``dispatch_order``, the k-th on the
     stream for slot k of its devices' pools (``bucket_stream``): upload,
-    kernels and copies back on that stream, so in CLI mode nothing waits
-    for the card and this returns once the work is queued; embedding mode
-    waits for each bucket's speculation on its own stream. The pending
+    kernels and copies back on that stream, so in either mode nothing
+    waits for the card and this returns once the work is queued. The pending
     buckets come back in the order their shapes first appear, as
     ``pngloss_tpu.pipeline`` returns them."""
     mesh = resolve_mesh(device, mesh)

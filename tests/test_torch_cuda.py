@@ -212,9 +212,11 @@ def test_optimize_rows_cuda_matches_the_loop_over_row_step(cuda, bpp):
 
 
 def test_embedding_fallback_is_one_retry_launch(cuda):
-    """An embedding call whose speculation fails: the row kernel's retry
-    variant runs row 0 twice (the batch's, then the failed images'), the
-    one-attempt variant never, the image kernel's retry variant once."""
+    """An embedding call on a batch whose speculation would fail some
+    images: the row kernel's retry variant runs row 0 once, the image
+    kernel's retry variant (the ladder) rows 1..H-1 of the whole batch
+    once, and neither the one-attempt row kernel nor the adaptive image
+    kernel runs."""
     rows = np.random.default_rng(700).integers(0, 256, (4, 6, 21),
                                                dtype=np.uint8)
     rows_d = torch.as_tensor(rows, device=cuda)
@@ -231,7 +233,7 @@ def test_embedding_fallback_is_one_retry_launch(cuda):
     before = counters()
     qg, fg = optimize_batch_auto(rows, 45, 2, bpp=3, device=cuda,
                                  use_row_filters=False)
-    assert tuple(a - b for a, b in zip(counters(), before)) == (0, 2, 1, 1)
+    assert tuple(a - b for a, b in zip(counters(), before)) == (0, 1, 0, 1)
     qc, fc = optimize_batch_auto(rows, 45, 2, bpp=3, device="cpu",
                                  use_row_filters=False)
     np.testing.assert_array_equal(qg.cpu().numpy(), qc.numpy())
@@ -246,10 +248,10 @@ def test_embedding_cuda_matches_cpu(cuda, bpp):
         rows.reshape(4, 6, 7, bpp)[:, ::2, 1::3, bpp - 1] = 0
     kw = dict(bpp=bpp, use_row_filters=False, w_real=[7, 4, 7, 1],
               h_real=[6, 6, 1, 3])
-    before = image.ADAPTIVE_LAUNCHES
+    before = image.RETRY_LAUNCHES
     qg, fg = optimize_batch_auto(rows, [45, 19, 0, 255], 2, device=cuda,
                                  **kw)
-    assert image.ADAPTIVE_LAUNCHES == before + 1
+    assert image.RETRY_LAUNCHES == before + 1
     qc, fc = optimize_batch_auto(rows, [45, 19, 0, 255], 2, device="cpu",
                                  **kw)
     np.testing.assert_array_equal(qg.cpu().numpy(), qc.numpy())
@@ -630,3 +632,72 @@ def test_pool_of_one_gives_the_pools_bytes(cuda, monkeypatch):
     monkeypatch.setattr(pipeline, "dispatch_order", list)
     got = [r.unwrap() for r in pipeline.compress_many(pngs, 19, device=cuda)]
     assert got == want
+
+
+# the image kernel's retry variant (the ladder): inputs whose rows retry
+# from strengths 0, 1, 2, 32 and 255 from carried states (ops/edges.EDGES)
+# and the give-up batch (never_pass on images at 0, 1, 2 and 40)
+LADDER_CASES = ["retry-s0-s1-s255-bpp4", "retry-to-s0-w64-bpp1",
+                "retry-from-s32-bpp3", "retry-every-row-w64-s150-bpp2-e40",
+                "give-up-bpp1", "give-up-bpp4"]
+
+
+def _ladder_case(name, device):
+    if name.startswith("give-up"):
+        return give_up_inputs(int(name[-1]), device)
+    return edge_inputs(name, device)[1], None
+
+
+@pytest.mark.parametrize("k", [1, 2, 8])
+@pytest.mark.parametrize("name", LADDER_CASES)
+def test_ladder_kernel_matches_plain(cuda, name, k):
+    """The ladder at cluster size k on the card: rows, filters and
+    attempts equal the sequential plain version's on the CPU, and its
+    rounds the plain ladder's."""
+    args, flags = _ladder_case(name, cuda)
+    cpu, cpu_flags = _ladder_case(name, "cpu")
+    b = args[0].shape[0]
+    rounds = torch.zeros(b, dtype=torch.int32, device=cuda)
+    before = image.RETRY_LAUNCHES
+    got = image.image_rows(*args, adaptive=True, retry=True, k=k,
+                           never_pass=flags, rounds=rounds)
+    assert image.RETRY_LAUNCHES == before + 1
+    _assert_same(got, image.image_rows_retry_ref(*cpu, never_pass=cpu_flags))
+    want_rounds = torch.zeros(b, dtype=torch.int32)
+    image.image_rows_ladder_ref(*cpu, k=k, never_pass=cpu_flags,
+                                rounds=want_rounds)
+    _assert_same([rounds], [want_rounds])
+
+
+def test_ladder_size_on_the_card(cuda):
+    """The cluster sizes the card keeps resident, and the size picked:
+    one of LADDER_SIZES, with an SM for every block."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for bpp in (1, 2, 3, 4):
+        resident = image.resident_clusters(bpp, cuda)
+        assert sorted(resident) == sorted(image.LADDER_SIZES)
+        assert all(n >= 1 for n in resident.values())
+        for b in (1, 2, 16, 33, 132, 1000):
+            k = image.ladder_size(b, bpp, cuda)
+            assert k == image.pick_ladder(b, resident, sms)
+            assert k == 1 or (b * k <= sms and resident[k] >= b)
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_every_variant_stops_at_the_last_real_row_on_the_card(cuda, bpp):
+    """h_real on the card: the CLI, adaptive and ladder variants equal
+    their plain versions on a ragged give-up batch (rows after the last
+    real one are 0, and count in neither ok nor attempts)."""
+    args, flags = give_up_inputs(bpp, cuda)
+    hr = _i32([4, 2, 1, 3, 4, 2], cuda)
+    _assert_same(image.image_rows(*args, h_real=hr),
+                 image.image_rows_ref(*args, h_real=hr))
+    _assert_same(image.image_rows(*args, adaptive=True, never_pass=flags,
+                                  h_real=hr),
+                 image.image_rows_ref(*args, adaptive=True,
+                                      never_pass=flags, h_real=hr))
+    want = image.image_rows_retry_ref(*args, never_pass=flags, h_real=hr)
+    for k in (None, 1, 2, 8):
+        _assert_same(image.image_rows(*args, adaptive=True, retry=True,
+                                      k=k, never_pass=flags, h_real=hr),
+                     want)

@@ -172,24 +172,34 @@ def test_embedding_matches_pallas_and_reference(case):
 
 
 def test_fallback_runs_on_failed_images_only(monkeypatch):
+    """Embedding mode runs rows 1..H-1 in one call of the image stage's
+    retry variant over the whole batch, and only the rows that fail the
+    self-check at full strength fall back to lower strengths: an image
+    the speculation passes (seed 700's image 1, all of seed 711) takes one
+    attempt a row."""
     calls = []
-    real = optimize_gpu.optimize_rows
+    real = image.image_rows
 
-    def spy(s, bleed, orig, *a, **k):
-        calls.append(orig.clone())
-        return real(s, bleed, orig, *a, **k)
+    def spy(*a, **k):
+        out = real(*a, **k)
+        calls.append((k, out))
+        return out
 
-    monkeypatch.setattr(optimize_gpu, "optimize_rows", spy)
+    monkeypatch.setattr(image, "image_rows", spy)
     rows = _noise(700, 3)                      # speculation ok: [0, 1, 0, 0]
     optimize_batch_auto(rows, STRENGTH, 2, bpp=3, device="cpu",
                         use_row_filters=False)
     assert len(calls) == 1
-    np.testing.assert_array_equal(
-        calls[0].numpy().reshape(3, 6, 21), rows[[0, 2, 3]])
+    (kw, (_, _, tries)), = calls
+    assert kw["adaptive"] and kw["retry"]
+    h = rows.shape[1]
+    assert int(tries[1]) == h - 1
+    assert all(int(tries[i]) > h - 1 for i in (0, 2, 3))
     calls.clear()
     optimize_batch_auto(_noise(711, 3), STRENGTH, 2, bpp=3, device="cpu",
                         use_row_filters=False)
-    assert not calls, "an all-ok batch must not re-run"
+    (_, (_, _, tries)), = calls
+    assert tries.tolist() == [h - 1] * 4, "an all-ok batch must not retry"
 
 
 def test_embedding_chunked_equals_whole(monkeypatch):

@@ -17,7 +17,9 @@ JAX package with the C tool). Each batch is one seed and checks:
       same card tensors, on one bucket of ``ops/random_cases.random_bucket``
       (one launch of each kernel): hist, row (row 0, one attempt), row
       retry (row 0 with its strength loop, with filter and attempts), image,
-      image adaptive (with ok) and image retry (with attempts); the retry
+      image adaptive (with ok) and image retry (with attempts: the ladder
+      at the cluster size it picks, against the sequential plain version);
+      the image variants stop at each image's real height; the retry
       variants and image adaptive with the test-only ``never_pass`` flag on
       some low-strength images.
 
@@ -204,15 +206,17 @@ def kernel_outputs(bucket, bleed: int, device) -> dict[str, tuple]:
         (q, *state, f, n), (q_ref, *state_ref, f_ref, n_ref))
     c0, _ = row0(s, bleed, orig0, ofreq, wr)
     args = (s, bleed, wr, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
-    add("image", ("q", "f"), image.image_rows(*args),
-        image.image_rows_ref(*args))
+    add("image", ("q", "f"), image.image_rows(*args, h_real=hr),
+        image.image_rows_ref(*args, h_real=hr))
     add("image_adaptive", ("q", "f", "ok"),
-        image.image_rows(*args, adaptive=True, never_pass=never_pass),
-        image.image_rows_ref(*args, adaptive=True, never_pass=never_pass))
+        image.image_rows(*args, adaptive=True, never_pass=never_pass,
+                         h_real=hr),
+        image.image_rows_ref(*args, adaptive=True, never_pass=never_pass,
+                             h_real=hr))
     add("image_retry", ("q", "f", "attempts"),
         image.image_rows(*args, adaptive=True, retry=True,
-                         never_pass=never_pass),
-        image.image_rows_retry_ref(*args, never_pass=never_pass))
+                         never_pass=never_pass, h_real=hr),
+        image.image_rows_retry_ref(*args, never_pass=never_pass, h_real=hr))
     return pairs
 
 
