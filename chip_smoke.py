@@ -21,11 +21,14 @@ Phases, each of which raises on failure:
      inside the next channel's band, transparent pixels at bpp 2 and 4,
      ragged widths, rows that retry from strength 32, 255, 2 and 1, an
      image whose every row fails; their plain versions run on the CPU);
-     the row kernel's retry variant at strengths 0, 1, 2, 19, 40 and 255
-     from the zero state and a mid-image one, and on the EDGES cases' rows
-     0 and 1 (rows that retry from 32, 255, 2 and 1); the retry variants'
-     give-up branch (no filter passes at strength 0) and the adaptive
-     variant's cleared ok, through the test-only ``never_pass`` flag on
+     the row kernel's retry variant (row 0's ladder, a thread-block
+     cluster of k blocks per image trying k strengths at once) at
+     strengths 0, 1, 2, 19, 40 and 255 from the zero state and a mid-image
+     one, and on the EDGES cases' rows 0 and 1 (rows that retry from 32,
+     255, 2 and 1), there also at k = 1, 2, 4 and 8 with its rounds; the
+     retry variants' give-up branch (no filter passes at strength 0) and
+     the adaptive variant's cleared ok, through the test-only
+     ``never_pass`` flag on
      images at strengths 0, 1, 2 and 40 beside unflagged ones in one
      launch, at bpp 1-4: flagged images take s + 1 attempts a row,
      unflagged ones equal themselves run alone;
@@ -33,7 +36,8 @@ Phases, each of which raises on failure:
      kernel's time beside its plain version's, and with ``--parent DIR``
      (a checkout of an earlier commit) the kernels of both trees timed in
      turns, parent, this tree, this tree, parent (n/a for a kernel the
-     parent lacks);
+     parent lacks), row 0's strength loop also on row 0 of phase 6's batch
+     at -s 90 and -s 255;
   4. PNG bytes of ``compress_many(device="cuda")`` against the scalar
      reference model plus the host encoder, on small mixed images; and
      embedding mode (``optimize_for_average_filter``,
@@ -46,19 +50,24 @@ Phases, each of which raises on failure:
   6. embedding mode at full size: ``optimize_rgba_batch(use_row_filters=
      False)`` on 16 512x512 RGB images, some of which pass the speculation
      and some need the fallback (launches: the row kernel's retry variant
-     twice, row 0 of the batch and of the fallback, its one-attempt variant
-     never, the image kernel's retry variant once); the adaptive image
-     kernel against its plain version over all 511 rows, ok included; the
+     once, row 0, its one-attempt variant never, the image kernel's retry
+     variant once, over the whole batch); the adaptive image
+     kernel against its plain version over rows 1-63, ok included, and
+     timed over all 511; the
      fallback's one launch of the retry variant against the row kernel's
      one-attempt variant with the strength loop on the host
      (``ops/edges.rows_by_step``: ``strength_loop`` around ``row_attempt``
-     per row), rows, filters and attempts per image, both timed, and the
-     retry
-     variant against its plain version over all 511 rows of the failed
-     images; one retry launch over the whole batch timed beside
-     speculation plus fallback; the output equals the host's per-row loop
-     on every image, and every row's filter is libpng's MSAD choice for
-     that row;
+     per row), rows, filters and attempts per image, both timed, the
+     ladder at k = 1, 2, 4 and 8 against the host loop over all 511 rows
+     of the failed images and against its sequential plain version over
+     rows 1-63; the output equals the host's per-row loop on every image,
+     and every row's filter is libpng's MSAD choice for that row;
+     (6b) speculation plus fallback against the ladder, in turns;
+     (6c) row 0's ladder on phase 6's batch at -s 90 and -s 255 in CLI
+     mode against its sequential plain version on the card, attempts and
+     rounds per image, at the k it picks and at k = 1, 2, 4 and 8, and
+     ``compress_many`` of that batch at -s 90 giving the same bytes with
+     row 0 at k = 1 and, with ``--parent``, as the parent tree;
   7. the CLI on phase 5's images: ``cli.run`` in-process and
      ``python -m pngloss_tpu_torch`` as a subprocess give phase 5's bytes;
      stdin -> stdout, ``-v``, a not-a-PNG input (exit 25),
@@ -96,8 +105,9 @@ Each of phases 5-13 sets the launch counters to 0 just before the path it
 drives and reads them just after; a kernel of that path that was not
 launched fails the run.
 
-Prints the card line and one JSON line of per-kernel results before the
-last line, ``{"ok": true, "device": {...}}``: launches on the main path,
+Prints its own duration, the card line and one JSON line of per-kernel
+results before the last line, ``{"ok": true, "device": {...}}``: launches
+on the main path,
 max abs error against the plain version, the kernel's, the plain
 version's and the library's time (none: no PyTorch call computes any of
 these functions), and the least time the card could take for the same
@@ -129,6 +139,19 @@ SEED = 0
 N_IMAGES, SIDE, STRENGTH = 16, 512, 19
 # phase 3a: the row kernel's retry variant at these strengths, bpp 1-4
 ROW_STRENGTHS = (0, 1, 2, 19, 40, 255)
+# row 0's ladder (the row kernel's retry variant) at these cluster sizes,
+# in phase 3a besides the size it picks; phase 6c and the turns of 3b time
+# it at LADDER_TIMES on row 0 of phase 6's batch at ROW0_STRENGTHS
+ROW_LADDER_CHECKS = (1, 2, 4, 8)
+ROW0_STRENGTHS = (90, 255)
+# phase 6: the rows (row 0 and rows 1..PLAIN_ROWS-1) that the plain
+# version of the image kernel's adaptive variant runs on the batch, and
+# those that the sequential plain version of its retry variant runs on the
+# failed images (SEQUENTIAL_ROWS); the retry variant (the ladder) at full
+# depth is held to the plain ladder and to the host loop, and both kernels
+# are timed at full depth
+PLAIN_ROWS = 64
+SEQUENTIAL_ROWS = 16
 # the image kernel's retry variant (the ladder) at these cluster sizes, in
 # phase 3a besides the size it picks; phase 6 and the turns of 3b add 4
 LADDER_CHECKS = (1, 2, 8)
@@ -299,7 +322,7 @@ def check_kernels(device, log=None) -> dict[str, int]:
     import torch
 
     from pngloss_tpu_torch.convert import Carry
-    from pngloss_tpu_torch.ops import hist, image, row
+    from pngloss_tpu_torch.ops import hist, image, ladder, row
     from pngloss_tpu_torch.ops.edges import (
         EDGES,
         HIST_EDGES,
@@ -313,6 +336,7 @@ def check_kernels(device, log=None) -> dict[str, int]:
     rng6 = np.random.default_rng(SEED + 11)
     errs = dict.fromkeys((k[0] for k in KERNELS), 0)
     ladder_rounds: dict = {}      # cluster size -> rounds summed per image
+    row_rounds: dict = {}         # the same for row 0's ladder
     oks = set()
     retried = False
     row_retried = set()       # strengths the row retry variant retried from
@@ -385,6 +409,11 @@ def check_kernels(device, log=None) -> dict[str, int]:
                                    row_retry_inputs(image_cpu)):
             errs["row_retry"] = max(errs["row_retry"],
                                     row_retry_err(on_card, on_cpu))
+            if name.startswith("retry"):
+                want = row.row_retry_ref(*on_card)
+                for k in ROW_LADDER_CHECKS:
+                    errs["row_retry"] = max(errs["row_retry"], row_ladder_err(
+                        on_card, on_cpu, want, k, row_rounds))
         for key, adaptive in (("image", False), ("image_adaptive", True)):
             errs[key] = max(errs[key], _max_err(
                 image.image_rows(*image_args, adaptive=adaptive),
@@ -396,7 +425,8 @@ def check_kernels(device, log=None) -> dict[str, int]:
             for k in LADDER_CHECKS:
                 errs["image_retry"] = max(errs["image_retry"], ladder_err(
                     image_args, image_cpu, want, k, ladder_rounds))
-    for key, err in check_give_up(device, ladder_rounds).items():
+    for key, err in check_give_up(device, ladder_rounds,
+                                  row_rounds).items():
         errs[key] = max(errs[key], err)
     if any(errs.values()):
         raise AssertionError(f"kernel != plain version: {errs}")
@@ -413,10 +443,18 @@ def check_kernels(device, log=None) -> dict[str, int]:
             f"{ladder_rounds}; picks k={image.ladder_size(4, 3, device)} "
             f"for 4 images, {image.ladder_size(6, 3, device)} for 6")
         log("  clusters resident at once per bpp {k: clusters}: " + ", ".join(
-            f"bpp {bpp} {image.resident_clusters(bpp, device)}"
+            f"bpp {bpp} {ladder.resident_clusters(image.clusters, bpp, device)}"
             for bpp in (1, 2, 3, 4)) + "; k picked at bpp 3 for B images: "
             + str({b: image.ladder_size(b, 3, device)
                    for b in (1, 2, 16, 32, 64, 132)}))
+        log(f"  row 0's ladder (row retry variant) on the EDGES retry "
+            f"cases' rows 0 and 1 and the give-up batch: k "
+            f"{sorted(row_rounds)}, rounds {row_rounds}")
+        log("  row ladder: clusters resident at once per bpp: " + ", ".join(
+            f"bpp {bpp} {ladder.resident_clusters(row.clusters, bpp, device)}"
+            for bpp in (1, 2, 3, 4)) + "; k picked at bpp 3 for B images: "
+            + str({b: row.ladder_size(b, 3, device)
+                   for b in (1, 2, 6, 16, 32, 64, 132)}))
     return errs
 
 
@@ -448,10 +486,38 @@ def ladder_err(on_card, on_cpu, want, k: int, seen: dict,
     return err
 
 
-def check_give_up(device, ladder_rounds: dict) -> dict[str, int]:
+def row_ladder_err(on_card, on_cpu, want, k: int, seen: dict,
+                   never_pass=None) -> int:
+    """Row 0's ladder at cluster size k on card tensors against ``want``
+    (the sequential plain version's output on the same tensors), its
+    rounds against ceil(attempts / k), and at the largest of
+    ROW_LADDER_CHECKS against the plain ladder's on the CPU (``on_cpu``).
+    Adds the rounds to ``seen[k]``. Returns the max abs error."""
+    import torch
+
+    from pngloss_tpu_torch.ops import row
+
+    b = on_card[0].shape[0]
+    rounds = torch.zeros(b, dtype=torch.int32, device=on_card[0].device)
+    got = row.row_retry(*on_card, never_pass=never_pass, k=k, rounds=rounds)
+    seen[k] = seen.get(k, 0) + int(rounds.sum())
+    err = max(_max_err(got, want),
+              _max_err(rounds, (want[2] + k - 1) // k))
+    if k == max(ROW_LADDER_CHECKS):
+        plain = torch.zeros(b, dtype=torch.int32)
+        row.row_retry_ladder_ref(
+            *on_cpu, k=k, rounds=plain,
+            never_pass=None if never_pass is None else never_pass.cpu())
+        err = max(err, _max_err(rounds, plain))
+    return err
+
+
+def check_give_up(device, ladder_rounds: dict,
+                  row_rounds: dict) -> dict[str, int]:
     """Phase 3a, the give-up branch: the image kernel's adaptive and retry
     variants (the latter also at LADDER_CHECKS) and the row kernel's retry
-    variant (row 0 and row 1) with the test-only never_pass flag on images
+    variant (row 0 and row 1; also at ROW_LADDER_CHECKS) with the
+    test-only never_pass flag on images
     at strengths 0, 1, 2 and 40 beside unflagged images, at bpp 1-4,
     against their plain versions on the same card tensors. Flagged images
     must get ok 0 and take s + 1 attempts a row; unflagged ones must equal
@@ -471,10 +537,15 @@ def check_give_up(device, ladder_rounds: dict) -> dict[str, int]:
     for bpp in (1, 2, 3, 4):
         args, flags = give_up_inputs(bpp, device)
         flagged = flags.bool()
-        for rargs in row_retry_inputs(args):
+        for rargs, rcpu in zip(row_retry_inputs(args),
+                               row_retry_inputs(give_up_inputs(bpp,
+                                                               "cpu")[0])):
             got = row.row_retry(*rargs, never_pass=flags)
-            errs["row_retry"] = max(errs["row_retry"], _max_err(
-                got, row.row_retry_ref(*rargs, never_pass=flags)))
+            want = row.row_retry_ref(*rargs, never_pass=flags)
+            errs["row_retry"] = max(errs["row_retry"], _max_err(got, want))
+            for k in ROW_LADDER_CHECKS:
+                errs["row_retry"] = max(errs["row_retry"], row_ladder_err(
+                    rargs, rcpu, want, k, row_rounds, never_pass=flags))
             if _max_err(got[2][flagged], rargs[0][flagged] + 1):
                 raise AssertionError(
                     f"row retry give-up at bpp {bpp}: attempts "
@@ -614,10 +685,14 @@ def time_kernels(device, log) -> dict[str, dict]:
                                               ofreq, w_real, count=n),
             s, orig0, z, z, ze, ze, zh, w_real)
 
+    chosen = row.ladder_size(b, bpp, device)
     entry("row_retry", lambda: row.row0_retry(s, 2, orig0, ofreq, w_real),
-          retry_ref, f"{b}x1x{w}x{bpp} (row 0 with its strength loop)", 10)
-    out["row_retry"]["attempts"] = int(
-        row.row0_retry(s, 2, orig0, ofreq, w_real)[2].sum())
+          retry_ref, f"{b}x1x{w}x{bpp} (row 0 with its strength loop; "
+          f"ladder k={chosen})", 10)
+    rounds = torch.zeros(b, dtype=torch.int32, device=device)
+    out["row_retry"].update(attempts=int(row.row0_retry(
+        s, 2, orig0, ofreq, w_real, rounds=rounds)[2].sum()), k=chosen,
+        rounds=rounds.tolist())
     c0, _ = row0(s, 2, orig0, ofreq, w_real)
     args = (s, 2, w_real, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
     entry("image", lambda: image.image_rows(*args),
@@ -631,6 +706,8 @@ def kernel_times(device) -> dict[str, float]:
     plain version: what phase 3b runs for this tree and, in a subprocess,
     for the tree given with --parent (whose package comes first on
     sys.path there)."""
+    import inspect
+
     import torch
 
     from pngloss_tpu_torch.ops import hist, image, row
@@ -649,6 +726,11 @@ def kernel_times(device) -> dict[str, float]:
     if hasattr(row, "RETRY_LAUNCHES"):       # an earlier tree has none
         retry["row_retry"] = cuda_ms(lambda: row.row0_retry(
             s, 2, orig0, ofreq, w_real), 10)
+        if "k" in inspect.signature(row.row_retry).parameters:
+            for k in LADDER_TIMES:       # the main path's row 0 at each k
+                retry[f"row_retry_k{k}"] = cuda_ms(lambda: row.row0_retry(
+                    s, 2, orig0, ofreq, w_real, k=k), 10)
+        retry.update(row0_times(device))
     if hasattr(image, "RETRY_LAUNCHES"):     # an earlier tree has none
         # no row of these images fails: the retry variant's time beside
         # the adaptive variant's on the same work
@@ -668,6 +750,48 @@ def kernel_times(device) -> dict[str, float]:
         **retry,
         **(embedding_times(device) if "image_retry" in retry else {}),
     }
+
+
+def row0_inputs(device):
+    """Row 0 of phase 6's batch (8 smooth and 8 noise 512x512 RGB, seed
+    5) as row-kernel inputs: (orig0 (B, W, 3) int32, ofreq, w_real), and
+    the batch as RGBA."""
+    import torch
+
+    from pngloss_tpu_torch.ops import hist
+
+    rgba = embedding_batch(np.random.default_rng(EMBED_SEED))
+    b, bpp = N_IMAGES, 3
+    rows = torch.as_tensor(np.ascontiguousarray(rgba[..., :3]).reshape(
+        b, SIDE, SIDE * bpp), device=device)
+    wr = _i32([SIDE] * b, device)
+    ofreq = hist.original_frequencies(rows, bpp, wr, _i32([SIDE] * b,
+                                                          device))
+    return rows[:, 0].reshape(b, SIDE, bpp).to(torch.int32), ofreq, wr, rgba
+
+
+def row0_times(device) -> dict[str, float]:
+    """Row 0's strength loop (the row kernel's retry variant) in this tree
+    or an earlier one (kernel_times) on row 0 of phase 6's batch at each
+    of ROW0_STRENGTHS, at the cluster size it picks and, in a tree with
+    the row ladder, at each of LADDER_TIMES ("_k<size>"), CUDA-event
+    ms."""
+    import inspect
+
+    from pngloss_tpu_torch.ops import row
+
+    orig0, ofreq, wr, _ = row0_inputs(device)
+    sizes = [None]
+    if "k" in inspect.signature(row.row_retry).parameters:
+        sizes += list(LADDER_TIMES)
+    out = {}
+    for st in ROW0_STRENGTHS:
+        s = _i32([st] * N_IMAGES, device)
+        for k in sizes:
+            kw, tag = ({}, "") if k is None else ({"k": k}, f"_k{k}")
+            out[f"row_retry_p6_s{st}{tag}"] = cuda_ms(
+                lambda: row.row0_retry(s, 2, orig0, ofreq, wr, **kw), 5)
+    return out
 
 
 def embedding_times(device) -> dict[str, float]:
@@ -1010,53 +1134,82 @@ def run_embedding(device, card: str, log):
     host_s = time.perf_counter() - t0
     host_launches = read_counts("[6] the host loop", ("row",))["row"]
 
-    # the retry variant on the failed images (all 511 rows, from row 0's
-    # state), the ladder at the cluster size it picks and at every size of
-    # LADDER_TIMES, against one run of its sequential plain version, which
-    # replays one attempt from a CUDA graph (~0.2 s each), and against the
-    # host loop: rows, filters and attempts per image; the rounds at k = 1
-    # are the attempts
+    # the retry variant on the failed images, from row 0's state, over all
+    # 511 rows: the ladder at the cluster size it picks against its plain
+    # version at that size (image_rows_ladder_ref, which replays one round
+    # from a CUDA graph) in rows, filters, attempts and rounds; at every
+    # size of LADDER_TIMES against the host loop (rows, filters, attempts;
+    # at k = 1 the rounds are the attempts); and over rows
+    # 1..SEQUENTIAL_ROWS-1 against the sequential plain version
+    # (image_rows_retry_ref, one attempt a replay)
     cb, _, first_tries = row_step(
         fall[0], 2, fall[2][:, 0].contiguous(),
         zero_carry(len(bad), SIDE, bpp, device), fall[3], fall[4])
     args = (fall[0], 2, fall[4], fall[3], rows[sel].contiguous(), cb.qprev,
             cb.e0, cb.e1, cb.hist)
     chosen = image.ladder_size(len(bad), bpp, device)
+    plain_rounds = torch.zeros(len(bad), dtype=torch.int32, device=device)
     retry = timed_entry(
         "image_retry",
         lambda: image.image_rows(*args, adaptive=True, retry=True),
-        lambda n: image.image_rows_retry_ref(*args, count=n),
+        lambda n: image.image_rows_ladder_ref(*args, k=chosen,
+                                              rounds=plain_rounds, count=n),
         f"{len(bad)}x{SIDE}x{SIDE}x{bpp} (rows 1-{SIDE - 1} of the failed "
         f"images, embedding batch; ladder k={chosen})", 2, log, keep=True)
     want = retry.pop("want")
+    host_later = tries_host - first_tries       # rows 1..511, the host loop
+    err = _max_err(want, (qh[:, 1:], fh[:, 1:], host_later))
+    if err:
+        raise AssertionError(f"the plain ladder != the host loop on the "
+                             f"failed images: max abs err {err}")
+    cut = (*args[:4], args[4][:, :SEQUENTIAL_ROWS].contiguous(), *args[5:])
+    seq = timed_entry(
+        "image_retry", lambda: image.image_rows(*cut, adaptive=True,
+                                                retry=True),
+        lambda n: image.image_rows_retry_ref(*cut, count=n),
+        f"{len(bad)}x{SEQUENTIAL_ROWS}x{SIDE}x{bpp} (rows 1-"
+        f"{SEQUENTIAL_ROWS - 1}, sequential plain version)", 2, log,
+        keep=True)
+    want_cut = seq.pop("want")
     ladder = {}
     for k in LADDER_TIMES:
+        rounds_cut = torch.zeros(len(bad), dtype=torch.int32, device=device)
+        err = _max_err(image.image_rows(*cut, adaptive=True, retry=True,
+                                        k=k, rounds=rounds_cut), want_cut)
         rounds = torch.zeros(len(bad), dtype=torch.int32, device=device)
-        err = _max_err(image.image_rows(*args, adaptive=True, retry=True,
-                                        k=k, rounds=rounds), want)
+        got = image.image_rows(*args, adaptive=True, retry=True, k=k,
+                               rounds=rounds)
+        err = max(err, _max_err(got, want))
         if k == 1:
-            err = max(err, _max_err(rounds, want[2]))
+            err = max(err, _max_err(rounds, got[2]),
+                      _max_err(rounds_cut, want_cut[2]))
+        if k == chosen:
+            err = max(err, _max_err(rounds, plain_rounds))
         if err:
             raise AssertionError(f"the ladder at k={k} != its plain version "
-                                 f"on the failed images: max abs err {err}")
+                                 f"or the host loop (rows 1-{SIDE - 1}) or "
+                                 f"the sequential plain version (rows 1-"
+                                 f"{SEQUENTIAL_ROWS - 1}) on the failed "
+                                 f"images: max abs err {err}")
         ms = cuda_ms(lambda: image.image_rows(*args, adaptive=True,
                                               retry=True, k=k), 2)
         ladder[k] = dict(ms=ms, rounds=rounds.tolist())
-        log(f"  ladder k={k:2d}: {ms:10.3f} ms, rounds per image "
-            f"{rounds.tolist()} ({max(rounds.tolist()) / (SIDE - 1):.3f} a "
-            f"row in the slowest), attempts {want[2].tolist()}; equal to "
-            "the plain version (rows, filters, attempts)")
-    qr2, fr2, later_tries = image.image_rows(*args, adaptive=True, retry=True)
-    tries = first_tries + later_tries
-    err = max(_max_err((qr2, fr2), (qh[:, 1:], fh[:, 1:])),
-              _max_err(tries, tries_host))
-    if err:
-        raise AssertionError(f"the retry variant != the host loop "
-                             f"on the failed images: max abs err {err}")
-    retry.update(b=len(bad), attempts=int(later_tries.sum()),
+        slowest = max(rounds.tolist()) / (SIDE - 1)
+        log(f"  ladder k={k:2d}, rows 1-{SIDE - 1}: {ms:10.3f} ms, rounds "
+            f"per image {rounds.tolist()} ({slowest:.3f} a row in the "
+            f"slowest), attempts {got[2].tolist()}; equal to the host loop"
+            + (", and to the plain ladder in rounds too" if k == chosen
+               else "") + f"; rows 1-{SEQUENTIAL_ROWS - 1}: rounds "
+            f"{rounds_cut.tolist()}, attempts {want_cut[2].tolist()}, equal "
+            "to the sequential plain version")
+    tries = tries_host
+    retry.update(b=len(bad), attempts=int(host_later.sum()),
                  host_loop_ms=host_s * 1e3, k=chosen,
                  rounds=ladder[chosen]["rounds"],
-                 ms_by_k={k: v["ms"] for k, v in ladder.items()})
+                 ms_by_k={k: v["ms"] for k, v in ladder.items()},
+                 sequential=dict(h=SEQUENTIAL_ROWS, shape=seq["shape"],
+                                 ms=seq["ms"], plain_ms=seq["plain_ms"],
+                                 attempts=want_cut[2].tolist()))
     tries = tries.tolist()
     log(f"  the failed images with the strength loop on the host "
         f"(strength_loop around row_attempt): {host_s * 1e3:.3f} ms, "
@@ -1099,12 +1252,120 @@ def run_embedding(device, card: str, log):
     log(f"  launches: {launches}")
 
     args = (s, 2, wr, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
+    cut = (*args[:4], rows[:, :PLAIN_ROWS].contiguous(), *args[5:])
     timing = timed_entry(
-        "image_adaptive", lambda: image.image_rows(*args, adaptive=True),
-        lambda n: image.image_rows_ref(*args, adaptive=True, count=n),
-        f"{b}x{SIDE}x{SIDE}x{bpp} (rows 1-{SIDE - 1}, embedding batch)", 2,
-        log)
+        "image_adaptive", lambda: image.image_rows(*cut, adaptive=True),
+        lambda n: image.image_rows_ref(*cut, adaptive=True, count=n),
+        f"{b}x{PLAIN_ROWS}x{SIDE}x{bpp} (rows 1-{PLAIN_ROWS - 1}, "
+        "embedding batch)", 2, log)
+    # its plain version over all 511 rows would take ~150 s more than the
+    # run's time allows (PERF.md section 7); the kernel is timed there
+    timing.update(h=PLAIN_ROWS, ms_full=cuda_ms(
+        lambda: image.image_rows(*args, adaptive=True), 2))
+    log(f"  image_adaptive, rows 1-{SIDE - 1}: {timing['ms_full']:.3f} ms")
     return launches, timing, retry, (rgba, q1, f1)
+
+
+def run_row0_ladder(device, parent, card: str, log) -> dict:
+    """Phase 6c: row 0's ladder (the row kernel's retry variant) on phase
+    6's batch in CLI mode. At each of ROW0_STRENGTHS: one launch at the
+    cluster size it picks and one at each of LADDER_TIMES against the
+    sequential plain version on the same card tensors (``row_retry_ref``:
+    ``strength_loop`` around ``row_attempt_ref``), exact (rows,
+    histograms, dither rows, filters, attempts), rounds per image equal
+    to ceil(attempts / k), CUDA-event ms of each. Then ``compress_many``
+    on the batch's PNGs at -s 90: the same bytes with row 0 at k = 1 and,
+    with --parent, as the parent tree's ``compress_many``. Returns
+    {strength: {"k", "attempts", "rounds", "ms", "ms_by_k", "plain_ms"}}.
+    """
+    import hashlib
+
+    import torch
+
+    from pngloss_tpu_torch.codec import encode
+    from pngloss_tpu_torch.ops import row
+    from pngloss_tpu_torch.pipeline import compress_many
+
+    orig0, ofreq, wr, rgba = row0_inputs(device)
+    b, bpp = N_IMAGES, 3
+    chosen = row.ladder_size(b, bpp, device)
+    zero = row.zero_carry(b, SIDE, bpp, device)
+    out = {}
+    for st in ROW0_STRENGTHS:
+        s = _i32([st] * b, device)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = row.row_retry_ref(s, 2, orig0, zero, ofreq, wr)
+        end.record()
+        end.synchronize()
+        rec = {"k": chosen, "attempts": want[2].tolist(),
+               "plain_ms": start.elapsed_time(end), "ms_by_k": {},
+               "rounds_by_k": {}}
+        for k in (None, *LADDER_TIMES):
+            rounds = torch.zeros(b, dtype=torch.int32, device=device)
+            got = row.row0_retry(s, 2, orig0, ofreq, wr, k=k, rounds=rounds)
+            size = chosen if k is None else k
+            err = max(_max_err(got, want),
+                      _max_err(rounds, (want[2] + size - 1) // size))
+            if err:
+                raise AssertionError(f"[6c] row 0's ladder at k={size}, -s "
+                                     f"{st}: max abs err {err}")
+            ms = cuda_ms(lambda: row.row0_retry(s, 2, orig0, ofreq, wr,
+                                                k=k), 5)
+            if k is None:
+                rec.update(ms=ms, rounds=rounds.tolist())
+            else:
+                rec["ms_by_k"][k] = ms
+                rec["rounds_by_k"][k] = rounds.tolist()
+        out[st] = rec
+        log(f"  -s {st} on {card}: row 0 attempts per image "
+            f"{rec['attempts']}; ladder k={chosen} (picked) {rec['ms']:.4f} "
+            f"ms, rounds {rec['rounds']}; " + ", ".join(
+                f"k={k} {rec['ms_by_k'][k]:.4f} ms (rounds max "
+                f"{max(rec['rounds_by_k'][k])})" for k in LADDER_TIMES)
+            + f"; sequential plain version {rec['plain_ms']:.3f} ms; all "
+            "equal to it")
+
+    strength = ROW0_STRENGTHS[0]
+    pngs = [encode(im, row_filters=None) for im in rgba]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = [r.unwrap() for r in compress_many(pngs, strength, device=device)]
+    wall = time.perf_counter() - t0
+    launches = read_counts("[6c] compress_many", CLI_KERNELS)
+    picked = row.ladder_size
+    row.ladder_size = lambda *a: 1
+    try:
+        one = [r.unwrap() for r in compress_many(pngs, strength,
+                                                 device=device)]
+    finally:
+        row.ladder_size = picked
+    if got != one:
+        raise AssertionError(f"[6c] compress_many at -s {strength}: row 0 "
+                             "at k = 1 gives other bytes")
+    same = "no parent given"
+    if parent:
+        with tempfile.TemporaryDirectory() as d:
+            write_pngs(d, pngs)
+            proc = subprocess.run(
+                [sys.executable, "-c", PARENT_DISPATCH,
+                 os.path.abspath(parent), d, str(strength)], cwd=parent,
+                capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"[6c] the parent's compress_many failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        theirs = json.loads(proc.stdout.strip().splitlines()[-1])["sha256"]
+        if theirs != [hashlib.sha256(p).hexdigest() for p in got]:
+            raise AssertionError(f"[6c] compress_many at -s {strength} "
+                                 "differs from the parent's bytes")
+        same = "equal to the parent's"
+    log(f"  compress_many, {b} x {SIDE}x{SIDE} RGB at -s {strength} (CLI "
+        f"mode): {wall:.3f} s, {sum(map(len, got))} bytes; row 0 at k = 1 "
+        f"gives the same bytes; {same}; launches {launches}")
+    return out
 
 
 def settle_speculation(device, card: str, log) -> dict:
@@ -1637,9 +1898,10 @@ def run_tracing(device, pngs, want, log) -> dict[str, int]:
         with open(os.path.join(d, name)) as fh:
             events = json.load(fh)["traceEvents"]
     # "hist_kernel(...)", "void (anonymous namespace)::image_kernel<3,
-    # false, false>(...)": the kernels of csrc/ by their function names;
-    # row_kernel<bpp, true> is the row kernel's retry variant
-    pattern = re.compile(r"(?:^|[ :])(hist|row|image)_kernel(<[^>]*>)?\(")
+    # false>(...)": the kernels of csrc/ by their function names;
+    # row_ladder_kernel is the row kernel's retry variant
+    pattern = re.compile(
+        r"(?:^|[ :])(hist|row_ladder|row|image)_kernel(<[^>]*>)?\(")
     names = ("hist", "row", "row_retry", "image")
     us = dict.fromkeys(names, 0.0)
     seen = dict.fromkeys(names, 0)
@@ -1650,9 +1912,7 @@ def run_tracing(device, pngs, want, log) -> dict[str, int]:
         busy += e["dur"]
         m = pattern.search(e.get("name", ""))
         if m:
-            key = m.group(1)
-            if key == "row" and (m.group(2) or "").endswith("true>"):
-                key = "row_retry"
+            key = {"row_ladder": "row_retry"}.get(m.group(1), m.group(1))
             us[key] += e["dur"]
             seen[key] += 1
     if seen != {k: counts[k] for k in names}:
@@ -1979,6 +2239,7 @@ def main(argv=None) -> int:
                     help="a checkout of an earlier commit whose kernels "
                          "phase 3b times in turns with this tree's")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2005,12 +2266,16 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("    " + line.strip())
 
+    t0 = time.perf_counter()
     errs = check_kernels(device, log)
-    log(f"[3] kernels == plain versions on small shapes: {errs}")
+    log(f"[3] kernels == plain versions on small shapes: {errs} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     timing = time_kernels(device, log)
     if args.parent:
         log(f"[3b] kernels of {args.parent} and of this tree, in turns")
         compare_parent(device, args.parent, log)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     small = check_end_to_end(device)
@@ -2023,16 +2288,28 @@ def main(argv=None) -> int:
         f"speculation ok {ok} ({time.perf_counter() - t0:.1f} s)")
 
     log("[5] main path")
+    t0 = time.perf_counter()
     launches, pngs, want = run_main_path(device, card, log)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     log("[6] embedding mode at full size")
+    t0 = time.perf_counter()
     (embed_launches, timing["image_adaptive"], timing["image_retry"],
      embed) = run_embedding(device, card, log)
     for name in ("image_adaptive", "image_retry"):
         launches[name] = embed_launches[name]
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     log("[6b] speculation against the ladder")
+    t0 = time.perf_counter()
     settle_speculation(device, card, log)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    log("[6c] row 0's ladder on phase 6's batch, CLI mode")
+    t0 = time.perf_counter()
+    timing["row_retry"]["p6"] = run_row0_ladder(device, args.parent, card,
+                                                log)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     for label, phase in (
             ("[7] CLI", lambda: run_cli(device, pngs, want, small, log)),
@@ -2052,7 +2329,8 @@ def main(argv=None) -> int:
     log(f"[3b] kernels on the main path (SM clock now, max: {sm_clocks()})")
     for name, src, rep in KERNELS:
         t = timing[name]
-        bound_ms, bound_by = bounds(name, t.get("b", N_IMAGES), SIDE, SIDE, 3,
+        bound_ms, bound_by = bounds(name, t.get("b", N_IMAGES),
+                                    t.get("h", SIDE), SIDE, 3,
                                     t["candidates"], t.get("attempts", 0))
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
@@ -2061,7 +2339,7 @@ def main(argv=None) -> int:
             plain_ms=t["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, shape=t["shape"],
             **{k: t[k] for k in ("attempts", "host_loop_ms", "k", "rounds",
-                                 "ms_by_k")
+                                 "ms_by_k", "sequential", "ms_full", "p6")
                if k in t}))
         log(f"  {name:14s} launches {launches[name]:5d}  kernel "
             f"{t['ms']:10.3f} ms  bound {bound_ms:.6f} ms ({bound_by}), "
@@ -2071,6 +2349,8 @@ def main(argv=None) -> int:
         f"{embed_launches['row']}, retry variant "
         f"{embed_launches['row_retry']}")
     log(f"  library calls: {NO_LIBRARY}")
+    log(f"[end] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
+        f"({'with' if args.parent else 'without'} --parent)")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

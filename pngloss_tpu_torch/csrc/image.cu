@@ -106,9 +106,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// the most rungs a cluster may have: the largest portable cluster size
-constexpr int kMaxRungs = 8;
-
 // Block set-up shared by both kernels: the rank keys of image b's original
 // frequencies into os, the histogram at row 1's start into hw and into the
 // warp's registers.
@@ -322,7 +319,7 @@ ladder_kernel(const int* __restrict__ s, int bleed,
       cluster.sync();
       unsigned found = 0;                     // bit r: rung r passed
 #pragma unroll
-      for (int r = 0; r < kMaxRungs; ++r)
+      for (int r = 0; r < plk::kMaxRungs; ++r)
         if (r < k && *cluster.map_shared_rank(&passing[par], r))
           found |= 1u << r;
       win = found ? __ffs(found) - 1 : -1;
@@ -403,22 +400,13 @@ ladder_kernel(const int* __restrict__ s, int bleed,
   cluster.sync();
 }
 
-cudaLaunchAttribute cluster_of(int k) {
-  cudaLaunchAttribute attr = {};
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = static_cast<unsigned>(k);
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  return attr;
-}
-
 using LadderFn = void (*)(const int*, int, const int*, const int*,
                           const int*, const uint8_t*, const int*, const int*,
                           const int*, const int*, int*, int*, int*, int*,
                           const int*, int*, int*, int*, int, int, int);
 
 cudaError_t ladder_kernel_of(int bpp, int k, LadderFn* kernel) {
-  if (k < 1 || k > kMaxRungs) return cudaErrorInvalidValue;
+  if (k < 1 || k > plk::kMaxRungs) return cudaErrorInvalidValue;
   switch (bpp) {
     case 1: *kernel = ladder_kernel<1>; break;
     case 2: *kernel = ladder_kernel<2>; break;
@@ -477,7 +465,7 @@ extern "C" int plk_image_rows(const void* s, int bleed, const void* w_real,
     LadderFn kernel = nullptr;
     cudaError_t err = ladder_kernel_of(bpp, k, &kernel);
     if (err != cudaSuccess) return static_cast<int>(err);
-    cudaLaunchAttribute attr = cluster_of(k);
+    cudaLaunchAttribute attr = plk::cluster_of(k);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(static_cast<unsigned>(B) * k);
     cfg.blockDim = dim3(plk::kFilters * plk::kWarp);
@@ -519,7 +507,7 @@ extern "C" int plk_ladder_clusters(int k, int bpp, int* clusters) {
   LadderFn kernel = nullptr;
   cudaError_t err = ladder_kernel_of(bpp, k, &kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr = cluster_of(k);
+  cudaLaunchAttribute attr = plk::cluster_of(k);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(k));
   cfg.blockDim = dim3(plk::kFilters * plk::kWarp);

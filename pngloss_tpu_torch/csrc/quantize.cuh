@@ -48,6 +48,19 @@ constexpr int kFilters = 5;
 constexpr int kWarp = 32;
 constexpr int kSlots = 256 / kWarp;   // histogram entries per lane
 constexpr unsigned kFull = 0xffffffffu;
+// the most rungs a ladder's cluster may have (row.cu, image.cu): the
+// largest portable cluster size
+constexpr int kMaxRungs = 8;
+
+// The launch attribute of a cluster of k blocks along x (the ladders).
+inline cudaLaunchAttribute cluster_of(int k) {
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(k);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  return attr;
+}
 
 // Exact unsigned division by a divisor fixed for the launch: the
 // round-up method of Granlund and Montgomery (1994, fig. 4.1), exact for

@@ -44,8 +44,10 @@ _SIGNATURES = {
     "plk_hist": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "plk_row_attempt": (_P, _I, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P, _P, _I, _I, _I, _P),
-    "plk_row_retry": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "plk_row_retry": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _P),
+    "plk_row_ladder_clusters": (_I, _I, _P),
     "plk_image_rows": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P),

@@ -23,8 +23,9 @@ pitches from 1 byte to 16396, bases 1 and 4 bytes off a 16-byte boundary,
 a constant image (one hot bin per filter), real sizes of 1 x 1 and of the
 whole plane, 1 image and 33.
 
-``row_retry_inputs`` gives the row kernel's retry variant the same cases:
-row 0 from the zero state and row 1 from the carried state.
+``row_retry_inputs`` gives the row kernel's retry variant (row 0's
+ladder) the same cases: row 0 from the zero state and row 1 from the
+carried state.
 
 ``give_up_inputs`` reaches the retry variants' give-up branch (no filter
 passes at strength 0) through the test-only ``never_pass`` flag: flagged

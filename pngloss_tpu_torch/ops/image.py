@@ -43,13 +43,15 @@ import ctypes
 
 import torch
 
-from pngloss_tpu_torch.ops import _build
+from pngloss_tpu_torch.ops import _build, ladder
+from pngloss_tpu_torch.ops.ladder import check_rungs, ladder_round
 from pngloss_tpu_torch.ops.optimize import (
     NUM_FILTERS,
     adaptive_cost,
     first_min,
     pick,
     quantize_row,
+    replayable,
     row_cost,
     self_check,
     strength_loop,
@@ -59,12 +61,6 @@ from pngloss_tpu_torch.ops.optimize import (
 LAUNCHES = 0
 ADAPTIVE_LAUNCHES = 0
 RETRY_LAUNCHES = 0
-# the ladder's cluster sizes, largest first; 8 is the largest portable
-# cluster size and the most the kernel takes
-LADDER_SIZES = (8, 4, 2, 1)
-MAX_RUNGS = 8
-# (device index, bpp) -> {k: clusters of k the card keeps resident}
-_RESIDENT: dict = {}
 
 
 def _heights(h_real, b: int, h: int, device) -> torch.Tensor:
@@ -105,7 +101,7 @@ def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
             return q5, h5, e0n, e1n, passing
 
         counted = None if count is None else count.clone()
-        step = _replayable(row_step, dev)
+        step = replayable(row_step, dev)
         if count is not None:
             count.copy_(counted)      # the graph's warm-up run counted too
         for y in range(1, h):
@@ -154,7 +150,7 @@ def image_rows_retry_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
                                 ofreq, w_real, count)
 
         counted = None if count is None else count.clone()
-        step = _replayable(quantize, dev)
+        step = replayable(quantize, dev)
         if count is not None:
             count.copy_(counted)      # the graph's warm-up run counted too
 
@@ -180,7 +176,7 @@ def image_rows_retry_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
 
 def image_rows_ladder_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
                           e10, hist0, k: int = 1, never_pass=None,
-                          h_real=None, rounds=None):
+                          h_real=None, rounds=None, count=None):
     """Plain version of the ladder (the retry variant on the card);
     arguments as for ``image_rows``. Each row runs in rounds: round j tries
     the k strengths s - j*k - r (r < k) from the same state, a strength
@@ -190,13 +186,14 @@ def image_rows_ladder_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
     attempts the sequential loop would take (s - s_win + 1 a row), which
     equal ``image_rows_retry_ref``'s for every k; ``rounds`` (B,) int32,
     where given, gets the rounds each image took. Strengths below 0 count
-    as 0.
+    as 0. ``count`` as for ``quantize_row``, over the attempts the
+    sequential loop takes (the rungs below a round's winner are not
+    counted), so it equals ``image_rows_retry_ref``'s.
 
     One round (the k attempts of every image as one batch of B*k, and
     their self-check) is captured once in a CUDA graph on a CUDA tensor,
     as in ``image_rows_ref``."""
-    if not 1 <= k <= MAX_RUNGS:
-        raise ValueError(f"k must be 1..{MAX_RUNGS}, got {k}")
+    check_rungs(k)
     b, h, wb = rows.shape
     w, bpp = qprev0.shape[1], qprev0.shape[2]
     dev = rows.device
@@ -220,14 +217,17 @@ def image_rows_ladder_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
         ofreq_k, w_k = rungs(ofreq), rungs(w_real)
         flags_k = None if never_pass is None else rungs(never_pass)
 
+        # each rung's band candidates in the round (count)
+        scanned = torch.zeros(b * k, dtype=torch.int64, device=dev)
+
         def attempt():
-            q5, h5, e0n, e1n = quantize_row(s_now, bleed, orow, qprev, e0,
-                                            e1, hist, ofreq_k, w_k)
+            q5, h5, e0n, e1n = quantize_row(
+                s_now, bleed, orow, qprev, e0, e1, hist, ofreq_k, w_k,
+                None if count is None else scanned)
             return q5, h5, e0n, e1n, self_check(q5, qprev, w_k, flags_k)
 
-        step = _replayable(attempt, dev)
+        step = replayable(attempt, dev)
         rung = torch.arange(k, dtype=i32, device=dev)
-        first_lane = torch.arange(b, device=dev) * k
         for y in range(1, h):
             done = hr <= y
             if bool(done.all()):
@@ -238,20 +238,20 @@ def image_rows_ladder_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
             while True:
                 strengths = s[:, None] - j * k - rung[None]          # (B, k)
                 s_now.copy_(strengths.clamp(min=0).reshape(-1))
+                scanned.zero_()
                 q5, h5, e0n, e1n, passing = step()
                 cost = row_cost(q5, hist, h5, qprev, orow, oprev, w_k)
                 passing = passing & (strengths >= 0).reshape(-1, 1)
-                passed = passing.view(b, k, NUM_FILTERS).any(2)     # (B, k)
-                some = passed.any(1)
-                give_up = ~some & (s - j * k - (k - 1) <= 0)
-                # the lowest passing rung, else the strength-0 rung
-                win = torch.where(some, passed.to(i32).argmax(1),
-                                  (s - j * k).long())
-                new = ~done & (some | give_up)
-                lane = first_lane + win.clamp(0, k - 1)
-                pw = passing[lane]
-                best = first_min(adaptive_cost(
-                    cost[lane], pw | ~pw.any(1, keepdim=True)))
+                decided, win, lane, best = ladder_round(
+                    passing, cost, s, j, k)
+                if count is not None:
+                    # the rungs up to the winner (all, if none won) of the
+                    # images still running, at strengths 0 and up
+                    last = torch.where(decided, win, k - 1)
+                    needed = ((rung[None] <= last[:, None]) & ~done[:, None]
+                              & (strengths >= 0))
+                    count += (scanned.view(b, k) * needed).sum()
+                new = ~done & decided
                 won = [pick(t[lane], best) for t in (q5, h5, e0n, e1n)]
                 for buf, new_t in zip((qprev, hist, e0, e1), won):
                     keep = rungs(new).view(-1, *([1] * (buf.dim() - 1)))
@@ -271,67 +271,19 @@ def image_rows_ladder_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
     return qrows, filts, tries
 
 
-def pick_ladder(b: int, resident: dict, sms: int) -> int:
-    """The ladder's cluster size for ``b`` images: the largest k of
-    LADDER_SIZES for which the card keeps all b clusters of k blocks
-    resident at once (``resident[k]``, cudaOccupancyMaxActiveClusters) and
-    every block can have an SM of its own (b * k <= ``sms``); else 1."""
-    for k in LADDER_SIZES:
-        if resident.get(k, 0) >= b and b * k <= sms:
-            return k
-    return 1
-
-
-def resident_clusters(bpp: int, device) -> dict:
-    """{k: the most clusters of k blocks of the ladder at ``bpp`` that
-    ``device`` keeps resident at once}, for k in LADDER_SIZES, queried
-    once per device and bpp."""
-    idx = torch.device(device).index
-    idx = torch.cuda.current_device() if idx is None else idx
-    key = (idx, bpp)
-    if key not in _RESIDENT:
-        lib = _build.library()
-        out = {}
-        with torch.cuda.device(idx):
-            for k in LADDER_SIZES:
-                n = ctypes.c_int(0)
-                _build.check(lib.plk_ladder_clusters(k, bpp,
-                                                     ctypes.addressof(n)),
-                             "plk_ladder_clusters")
-                out[k] = n.value
-        _RESIDENT[key] = out
-    return _RESIDENT[key]
+def clusters(k: int, bpp: int) -> int:
+    """The most clusters of k blocks of the ladder at ``bpp`` that the
+    current device keeps resident at once (``plk_ladder_clusters``)."""
+    n = ctypes.c_int(0)
+    _build.check(_build.library().plk_ladder_clusters(
+        k, bpp, ctypes.addressof(n)), "plk_ladder_clusters")
+    return n.value
 
 
 def ladder_size(b: int, bpp: int, device) -> int:
-    """``pick_ladder`` for ``b`` images at ``bpp`` on a CUDA ``device``."""
-    idx = torch.device(device).index
-    idx = torch.cuda.current_device() if idx is None else idx
-    sms = torch.cuda.get_device_properties(idx).multi_processor_count
-    return pick_ladder(b, resident_clusters(bpp, idx), sms)
-
-
-def _replayable(fn, device):
-    """``fn`` itself on the CPU. On CUDA, ``fn`` captured once in a CUDA
-    graph: each call replays its kernels and returns the same output
-    tensors, refilled. ``fn`` must not write its inputs."""
-    if device.type != "cuda":
-        return fn
-    with torch.cuda.device(device):
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            fn()                # warm-up: lazy initialisation off the graph
-        torch.cuda.current_stream(device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = fn()
-
-    def replay():
-        with torch.cuda.device(device):
-            graph.replay()
-        return out
-    return replay
+    """The ladder's cluster size for ``b`` images at ``bpp`` on a CUDA
+    ``device``: ``ladder.pick_ladder`` over this kernel's ``clusters``."""
+    return ladder.ladder_size(clusters, b, bpp, device)
 
 
 def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
@@ -400,8 +352,8 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
         k = 1
     elif k is None:
         k = ladder_size(b, bpp, dev)
-    elif not 1 <= k <= MAX_RUNGS:
-        raise ValueError(f"k must be 1..{MAX_RUNGS}, got {k}")
+    else:
+        check_rungs(k)
     qrows = torch.empty((b, h - 1, w, bpp), dtype=i32, device=dev)
     filt = torch.empty((b, h - 1), dtype=i32, device=dev)
     # scratch: two sets of the k rungs' 5 candidates' rows and next dither

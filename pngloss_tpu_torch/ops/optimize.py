@@ -103,7 +103,7 @@ def quantize_row(s, bleed: int, orig, qprev, e0, e1, hist, ofreq, w_real,
     w_real (B,) real widths. ``count``, when given, is a 0-d int64 tensor
     to which the band candidates scanned at real, non-transparent channel
     steps are added: the data-dependent part of the work (chip_smoke.py's
-    operation count).
+    operation count); a (B,) int64 tensor gets each image's count.
 
     Returns qrow (B, 5, W, bpp), hist (B, 5, 256), and the next row's
     dither rows e0n, e1n (B, 5, W+5, 4): the buffer shift of
@@ -179,7 +179,7 @@ def quantize_row(s, bleed: int, orig, qprev, e0, e1, hist, ofreq, w_real,
                 sym = torch.where(transp, (0 - pred) & 0xFF, sym)
                 scanned = torch.where(transp, 0, scanned)
             if count is not None:
-                count += scanned.sum()
+                count += scanned.sum() if count.dim() == 0 else scanned.sum(1)
 
             hist.scatter_add_(2, sym[..., None].long(),
                               cm.expand(b, NUM_FILTERS)[..., None])
@@ -340,3 +340,27 @@ def strength_loop(attempt, s, orow, qprev, oprev, e0, e1, hist, w_real,
         s = torch.where(found, s, (s - 1).clamp(min=0))
         if bool(found.all()):
             return tuple(t.contiguous() for t in state), best, tries
+
+
+def replayable(fn, device):
+    """``fn`` itself on the CPU. On CUDA, ``fn`` captured once in a CUDA
+    graph: each call replays its kernels and returns the same output
+    tensors, refilled. ``fn`` must not write its inputs. The plain
+    versions run their repeated step (a row, an attempt) so on the card."""
+    if device.type != "cuda":
+        return fn
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn()                # warm-up: lazy initialisation off the graph
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+
+    def replay():
+        with torch.cuda.device(device):
+            graph.replay()
+        return out
+    return replay

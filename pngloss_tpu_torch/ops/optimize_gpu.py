@@ -9,7 +9,10 @@ same-shaped (possibly padded) working-format planes:
      winner. Images with no passing filter retry at strength s-1; at s <= 0
      the min-cost row is accepted (where the C tool would abort). On CUDA
      tensors the strength loop runs inside one launch of the row kernel, as
-     the JAX package runs it inside its device program;
+     the JAX package runs it inside its device program: a ladder, a
+     thread-block cluster per image that tries k strengths at once
+     (``row.ladder_size`` picks k from the batch size and bpp, so choosing
+     it reads nothing from the card);
   3. rows 1..H-1 through ``image`` in one launch. In CLI mode
      (``use_row_filters=True``) only row 0 can fail, so one attempt a row
      is final. In embedding mode every row must pass the MSAD self-check:
@@ -67,10 +70,10 @@ def bytes_per_image(h: int, w: int, bpp: int) -> int:
     spare (the per-row path's int32 originals and rows and its uint8
     originals, where a caller runs it), and the 5 candidates' rows and
     dither rows (a row attempt's outputs, and the image kernel's two sets
-    of scratch). The ladder's further rungs take scratch rows of their own
-    only while the batch leaves SMs idle (batch x rungs <= SMs), at most
-    that many rows' worth in all, which the memory share leaves room
-    for."""
+    of scratch). The two ladders' further rungs (row 0's and the image
+    stage's) take scratch rows of their own only while the batch leaves
+    SMs idle (batch x rungs <= SMs), at most that many rows' worth in all,
+    which the memory share leaves room for."""
     wb = w * bpp
     return (h * wb * (1 + 4 + 1 + 4 + 4 + 1)
             + 4 * 5 * 3 * (wb + 2 * 4 * (w + 5)) + 8192)
@@ -88,8 +91,9 @@ def max_batch(h: int, w: int, bpp: int, device) -> int:
 
 def row_step(s, bleed: int, orow, carry: Carry, ofreq, w_real):
     """One row with the MSAD self-check and the strength fallback
-    (``row.row_retry``: on CUDA tensors one launch with the loop inside,
-    no host sync), from the state ``carry`` the previous row left. Returns
+    (``row.row_retry``: on CUDA tensors one launch of the row ladder at the
+    k it picks, no host sync), from the state ``carry`` the previous row
+    left. Returns
     the winner's state as the next row's Carry, its filter id (B,) int64
     and the attempts each image took (B,) int32."""
     (q, h, e0n, e1n), best, tries = row_op.row_retry(s, bleed, orow, carry,

@@ -17,6 +17,7 @@ import torch
 from pngloss_tpu_torch.ops import (
     hist,
     image,
+    ladder,
     optimize_batch_auto,
     optimize_gpu,
     row,
@@ -352,7 +353,7 @@ def test_device_trace_lists_the_kernels(cuda, tmp_path):
         events = json.load(fh)["traceEvents"]
     kernels = " ".join(e.get("name", "") for e in events
                        if e.get("cat") == "kernel")
-    for k in ("hist_kernel", "row_kernel", "image_kernel"):
+    for k in ("hist_kernel", "row_ladder_kernel", "image_kernel"):
         assert k in kernels, k
 
 
@@ -674,12 +675,51 @@ def test_ladder_size_on_the_card(cuda):
     one of LADDER_SIZES, with an SM for every block."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for bpp in (1, 2, 3, 4):
-        resident = image.resident_clusters(bpp, cuda)
-        assert sorted(resident) == sorted(image.LADDER_SIZES)
+        resident = ladder.resident_clusters(image.clusters, bpp, cuda)
+        assert sorted(resident) == sorted(ladder.LADDER_SIZES)
         assert all(n >= 1 for n in resident.values())
         for b in (1, 2, 16, 33, 132, 1000):
             k = image.ladder_size(b, bpp, cuda)
-            assert k == image.pick_ladder(b, resident, sms)
+            assert k == ladder.pick_ladder(b, resident, sms)
+            assert k == 1 or (b * k <= sms and resident[k] >= b)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("name", LADDER_CASES)
+def test_row_ladder_kernel_matches_plain(cuda, name, k):
+    """Row 0's ladder (the row kernel's retry variant) at cluster size k on
+    the card, on rows 0 and 1 of each case (rows that retry from 255, 32,
+    2 and 1, and the give-up batch): row, histogram, dither rows, filter
+    and attempts equal the sequential plain version's on the CPU, and its
+    rounds the plain ladder's."""
+    args, flags = _ladder_case(name, cuda)
+    cpu, cpu_flags = _ladder_case(name, "cpu")
+    for on_card, on_cpu in zip(row_retry_inputs(args),
+                               row_retry_inputs(cpu)):
+        b = on_card[0].shape[0]
+        rounds = torch.zeros(b, dtype=torch.int32, device=cuda)
+        before = row.RETRY_LAUNCHES
+        got = row.row_retry(*on_card, never_pass=flags, k=k, rounds=rounds)
+        assert row.RETRY_LAUNCHES == before + 1
+        _assert_same(_flat(got), _flat(row.row_retry_ref(
+            *on_cpu, never_pass=cpu_flags)))
+        want_rounds = torch.zeros(b, dtype=torch.int32)
+        row.row_retry_ladder_ref(*on_cpu, never_pass=cpu_flags, k=k,
+                                 rounds=want_rounds)
+        _assert_same([rounds], [want_rounds])
+
+
+def test_row_ladder_size_on_the_card(cuda):
+    """The row ladder's cluster sizes the card keeps resident, and the
+    size picked: one of LADDER_SIZES, with an SM for every block."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for bpp in (1, 2, 3, 4):
+        resident = ladder.resident_clusters(row.clusters, bpp, cuda)
+        assert sorted(resident) == sorted(ladder.LADDER_SIZES)
+        assert all(n >= 1 for n in resident.values())
+        for b in (1, 2, 16, 33, 132, 1000):
+            k = row.ladder_size(b, bpp, cuda)
+            assert k == ladder.pick_ladder(b, resident, sms)
             assert k == 1 or (b * k <= sms and resident[k] >= b)
 
 

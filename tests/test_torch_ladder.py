@@ -22,6 +22,7 @@ from pngloss_tpu_torch import reference as ref
 from pngloss_tpu_torch.ops import (
     hist,
     image,
+    ladder,
     optimize,
     optimize_batch_auto,
     optimize_gpu,
@@ -105,6 +106,35 @@ def test_plain_ladder_equals_the_sequential_loop(name, k):
     assert rounds.tolist() == want_rounds
 
 
+@functools.lru_cache(maxsize=None)
+def _candidates(name):
+    """The band candidates of the sequential plain version, each image run
+    alone, summed."""
+    args, flags = _case(name)
+    count = torch.zeros((), dtype=torch.int64)
+    for i in range(args[0].shape[0]):
+        one = [a if isinstance(a, int) else a[i:i + 1] for a in args]
+        image.image_rows_retry_ref(
+            *one, count=count, never_pass=None if flags is None
+            else flags[i:i + 1])
+    return int(count)
+
+
+@pytest.mark.parametrize("k", [1, 2, 8])
+@pytest.mark.parametrize("name", CASES)
+def test_plain_ladder_counts_the_sequential_loops_candidates(name, k):
+    """The band candidates the plain ladder counts (chip_smoke.py's bound
+    of the retry variant) are those of the attempts the sequential loop
+    takes, at every k: each image's ``image_rows_retry_ref`` count, run
+    alone (in a batch the sequential version reruns the images that have
+    passed), summed; the rungs below a round's winner are left out."""
+    args, flags = _case(name)
+    got = torch.zeros((), dtype=torch.int64)
+    image.image_rows_ladder_ref(*args, k=k, never_pass=flags, count=got)
+    assert _candidates(name) > 0
+    assert int(got) == _candidates(name)
+
+
 def test_image_rows_on_the_cpu_runs_the_ladder():
     """``image_rows(retry=True)`` on CPU tensors is the plain ladder, at k
     = 1 unless k is given; k and rounds belong to the retry variant."""
@@ -140,12 +170,12 @@ RESIDENT = {8: 16, 4: 33, 2: 66, 1: 132}
     (2, {}, 132, 1),
 ])
 def test_pick_ladder(b, resident, sms, want):
-    assert image.pick_ladder(b, resident, sms) == want
+    assert ladder.pick_ladder(b, resident, sms) == want
 
 
 def test_pick_ladder_sizes():
-    assert image.LADDER_SIZES == (8, 4, 2, 1)
-    assert image.MAX_RUNGS == 8
+    assert ladder.LADDER_SIZES == (8, 4, 2, 1)
+    assert ladder.MAX_RUNGS == 8
 
 
 def _run(variant, args, flags, h_real):

@@ -16,7 +16,10 @@ JAX package with the C tool). Each batch is one seed and checks:
   (b) with --device cuda, each kernel against its plain version on the
       same card tensors, on one bucket of ``ops/random_cases.random_bucket``
       (one launch of each kernel): hist, row (row 0, one attempt), row
-      retry (row 0 with its strength loop, with filter and attempts), image,
+      retry (row 0 with its strength loop, with filter and attempts: the
+      row ladder at a cluster size drawn per batch from 1, 2, 4 and 8,
+      against the sequential plain version, and its rounds against the
+      plain ladder's), image,
       image adaptive (with ok) and image retry (with attempts: the ladder
       at the cluster size it picks, against the sequential plain version);
       the image variants stop at each image's real height; the retry
@@ -69,6 +72,8 @@ from pngloss_tpu_torch.ops.random_cases import (  # noqa: E402
 
 # images per batch through the entry points
 E2E_IMAGES = 8
+# the row ladder's cluster sizes, one drawn per kernel batch
+ROW_LADDER_KS = (1, 2, 4, 8)
 # named axes of each kernel output past the batch axis; "row" of the image
 # kernel's outputs counts from its first row, row 1
 AXES = {
@@ -83,6 +88,7 @@ AXES = {
     "row_retry.e1": ("col", "lane"),
     "row_retry.f": (),
     "row_retry.attempts": (),
+    "row_retry.rounds": (),
     "q": ("row", "col", "channel"),
     "f": ("row",),
     "ok": (),
@@ -171,9 +177,11 @@ def check_end_to_end(rng, seed: int, mode: str, device, bleed: int,
     return recs
 
 
-def kernel_outputs(bucket, bleed: int, device) -> dict[str, tuple]:
+def kernel_outputs(bucket, bleed: int, device,
+                   k: int = 1) -> dict[str, tuple]:
     """(b): every kernel and its plain version on the bucket's tensors on
-    the card. Returns {kernel: {output: (got, want) numpy arrays}}."""
+    the card, the row ladder at cluster size ``k``. Returns {kernel:
+    {output: (got, want) numpy arrays}}."""
     i32 = torch.int32
     rows = torch.as_tensor(bucket.rows, device=device)
     b, h, wb = rows.shape
@@ -197,13 +205,19 @@ def kernel_outputs(bucket, bleed: int, device) -> dict[str, tuple]:
     args = (s, bleed, orig0, z.qprev, z.e0, z.e1, z.hist, ofreq, wr)
     add("row", ("row.q", "row.hist", "row.e0", "row.e1"),
         row.row_attempt(*args), row.row_attempt_ref(*args))
+    rounds, rounds_ref = (torch.zeros(b, dtype=i32, device=device)
+                          for _ in range(2))
     (q, *state), f, n = row.row0_retry(s, bleed, orig0, ofreq, wr,
-                                        never_pass)
+                                        never_pass, k, rounds)
     (q_ref, *state_ref), f_ref, n_ref = row.row_retry_ref(
         s, bleed, orig0, z, ofreq, wr, never_pass)
+    row.row_retry_ladder_ref(s, bleed, orig0, z, ofreq, wr, never_pass, k,
+                             rounds_ref)
     add("row_retry", ("row_retry.q", "row_retry.hist", "row_retry.e0",
-                      "row_retry.e1", "row_retry.f", "row_retry.attempts"),
-        (q, *state, f, n), (q_ref, *state_ref, f_ref, n_ref))
+                      "row_retry.e1", "row_retry.f", "row_retry.attempts",
+                      "row_retry.rounds"),
+        (q, *state, f, n, rounds),
+        (q_ref, *state_ref, f_ref, n_ref, rounds_ref))
     c0, _ = row0(s, bleed, orig0, ofreq, wr)
     args = (s, bleed, wr, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
     add("image", ("q", "f"), image.image_rows(*args, h_real=hr),
@@ -243,7 +257,8 @@ def check_kernels(rng, seed: int, device, bleed: int, max_steps: int,
     """(b) on one random bucket. Returns one record per image."""
     bucket = random_bucket(rng, max_steps=max_steps,
                            max_strength=max_strength)
-    pairs = kernel_outputs(bucket, bleed, device)
+    rungs = int(rng.choice(ROW_LADDER_KS))
+    pairs = kernel_outputs(bucket, bleed, device, rungs)
     h_pad, w_pad = bucket.shape
     recs = []
     for k, kind in enumerate(bucket.kinds):
@@ -255,7 +270,7 @@ def check_kernels(rng, seed: int, device, bleed: int, max_steps: int,
                "mode": "kernels", "device": str(device),
                "bucket": [h_pad, w_pad],
                "never_pass": int(bucket.never_pass[k]),
-               "identical": where is None}
+               "row_ladder_k": rungs, "identical": where is None}
         if where:
             plane = bucket.rows[k, :hr, :wr * bucket.bpp]
             png = codec.encode(pipeline.restore_colorspace(
