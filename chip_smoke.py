@@ -37,7 +37,8 @@ Phases, each of which raises on failure:
      (a checkout of an earlier commit) the kernels of both trees timed in
      turns, parent, this tree, this tree, parent (n/a for a kernel the
      parent lacks), row 0's strength loop also on row 0 of phase 6's batch
-     at -s 90 and -s 255;
+     at -s 90 and -s 255, and the image ladder and a whole embedding call
+     on phase 14's gray batch;
   4. PNG bytes of ``compress_many(device="cuda")`` against the scalar
      reference model plus the host encoder, on small mixed images; and
      embedding mode (``optimize_for_average_filter``,
@@ -99,14 +100,33 @@ Phases, each of which raises on failure:
      8 and 32: equal bytes, wall time, MP/s, stage seconds, buckets and
      launches of each; and ``dispatch_buckets`` in CLI mode under
      ``torch.cuda.set_sync_debug_mode("error")``, returning while a spin
-     queued ahead of it on every stream of the pool still runs.
+     queued ahead of it on every stream of the pool still runs;
+ 14. the port at its users' sizes (PERF.md section 4): a 12 MP camera
+     photo (4000x3000 RGB, in a 4096x3072 bucket) and a 1920x1080
+     screenshot, each through ``compress_many`` at -s 19 and through
+     ``optimize_rgba_batch(use_row_filters=False)`` at -s 19 with every
+     kernel wrapper timed by CUDA events, then again through
+     ``ops.optimize_batch_auto`` alone (equal planes and filters) beside
+     each kernel of both paths against its plain version on the same card
+     tensors, max abs err 0: the pre-pass over the whole plane, row 0's
+     ladder at full width, the image kernel's CLI variant and its ladder
+     over rows 1..N-1 (N in USER_ROWS) of the whole plane, from the whole
+     image's pre-pass and row 0; a full card of 512x512 RGB images (132:
+     one block per SM; then 264, more blocks than SMs) through
+     ``compress_many`` and again through ``optimize_batch_auto``, the first
+     16 giving phase 5's bytes and the first 132 of the 264 the 132's; 16
+     gray 512x512 images in embedding mode; every output decodes to its
+     input's size and in embedding mode every row's filter is libpng's
+     MSAD choice; wall time, stage seconds, MP/s, CUDA-event ms, bound and
+     share of each, and the phase's own duration (at most 150 s).
 
-Each of phases 5-13 sets the launch counters to 0 just before the path it
+Each of phases 5-14 sets the launch counters to 0 just before the path it
 drives and reads them just after; a kernel of that path that was not
 launched fails the run.
 
 Prints its own duration, the card line and one JSON line of per-kernel
-results before the last line, ``{"ok": true, "device": {...}}``: launches
+results (and phase 14's numbers, under "users_sizes") before the last
+line, ``{"ok": true, "device": {...}}``: launches
 on the main path,
 max abs error against the plain version, the kernel's, the plain
 version's and the library's time (none: no PyTorch call computes any of
@@ -125,6 +145,7 @@ Usage: python3 chip_smoke.py [--parent DIR]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -239,6 +260,17 @@ FUZZ_MAX_STEPS = 512
 DISPATCH_N, DISPATCH_SIDES, DISPATCH_SEED = 100, (40, 400), SEED + 13
 DISPATCH_POOLS = (2, 4, 8, 32)
 DISPATCH_SPIN_CYCLES = 4_000_000_000
+# phase 14: users' shapes (H, W) and the rows N (h_real) over which the
+# plain versions of the image stages run at full width, from the whole
+# image's pre-pass and row 0: rows 1..N-1, at ~1.6 ms a channel step
+# (eager, launch by launch from the host) on an H100, so that the plain
+# checks of the phase (row 0 included) take ~90 s of its 150; the full
+# card's batches; the gray embedding batch and its N
+PHOTO, SCREEN = (3000, 4000), (1080, 1920)
+USER_ROWS = {"photo": 2, "screenshot": 2}
+USERS_SEED = SEED + 14
+CARD_IMAGES = (132, 264)
+GRAY_IMAGES, GRAY_ROWS = 16, 8
 
 
 def card_line() -> str:
@@ -302,14 +334,17 @@ def row_state(rng, b: int, w: int, bpp: int, device):
     )
 
 
-def synthetic_rgb(rng, n: int, h: int, w: int) -> np.ndarray:
-    """(n, h, w, 4) RGBA, opaque: smooth gradients plus seeded noise."""
+def synthetic_rgb(rng, n: int, h: int, w: int,
+                  dtype=np.int64) -> np.ndarray:
+    """(n, h, w, 4) RGBA, opaque: smooth gradients plus seeded noise, drawn
+    as ``dtype`` (np.int16 draws other noise, ~4x faster)."""
     y, x = np.mgrid[0:h, 0:w]
     base = np.stack([x * 255 // max(w - 1, 1), y * 255 // max(h - 1, 1),
-                     (x + y) * 255 // max(h + w - 2, 1)], -1)
-    rgb = np.clip(base[None] + rng.integers(-12, 13, (n, h, w, 3)), 0, 255)
-    alpha = np.full((n, h, w, 1), 255)
-    return np.concatenate([rgb, alpha], -1).astype(np.uint8)
+                     (x + y) * 255 // max(h + w - 2, 1)], -1).astype(dtype)
+    out = np.full((n, h, w, 4), 255, np.uint8)
+    out[..., :3] = np.clip(
+        base[None] + rng.integers(-12, 13, (n, h, w, 3), dtype=dtype), 0, 255)
+    return out
 
 
 def check_kernels(device, log=None) -> dict[str, int]:
@@ -626,7 +661,7 @@ def timed_entry(name, fn, ref, shape: str, reps: int, log,
     import torch
 
     count = torch.zeros((), dtype=torch.int64, device="cuda")
-    torch.cuda.synchronize()
+    torch.cuda.current_stream().synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -749,6 +784,7 @@ def kernel_times(device) -> dict[str, float]:
             lambda: image.image_rows(*img, adaptive=True), 3),
         **retry,
         **(embedding_times(device) if "image_retry" in retry else {}),
+        **(gray_times(device) if "image_retry" in retry else {}),
     }
 
 
@@ -842,6 +878,40 @@ def embedding_times(device) -> dict[str, float]:
                             device=device)
         walls.append((time.perf_counter() - t0) * 1e3)
     out["embedding_call"] = min(walls)
+    return out
+
+
+def gray_times(device) -> dict[str, float]:
+    """Phase 14's gray embedding batch (16 x 512x512, bpp 1) in this tree
+    or an earlier one (kernel_times): the image kernel's retry variant over
+    rows 1-511 from the batch's pre-pass and row 0, at the cluster size
+    the tree picks and, in a tree with the ladder, at each of LADDER_TIMES
+    ("_k<size>"), CUDA-event ms; and the best of two whole embedding calls
+    (``optimize_rgba_batch``), host wall ms."""
+    import inspect
+
+    import torch
+
+    from pngloss_tpu_torch.ops import image
+    from pngloss_tpu_torch.pipeline import optimize_rgba_batch
+
+    args, rgba = gray_inputs(device)
+    sizes = [None]
+    if "k" in inspect.signature(image.image_rows).parameters:
+        sizes += list(LADDER_TIMES)
+    out = {}
+    for k in sizes:
+        kw, tag = ({}, "") if k is None else ({"k": k}, f"_k{k}")
+        out["image_retry_gray" + tag] = cuda_ms(lambda: image.image_rows(
+            *args, adaptive=True, retry=True, **kw), 2)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimize_rgba_batch(list(rgba), STRENGTH, use_row_filters=False,
+                            device=device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["embedding_gray_call"] = min(walls)
     return out
 
 
@@ -1070,7 +1140,6 @@ def run_embedding(device, card: str, log):
     (rgba, q, f)."""
     import torch
 
-    from pngloss_tpu_torch.reference import adaptive_filter_for_row
     from pngloss_tpu_torch.ops import image
     from pngloss_tpu_torch.ops.edges import rows_by_step
     from pngloss_tpu_torch.ops.optimize_gpu import row_step, zero_carry
@@ -1233,12 +1302,8 @@ def run_embedding(device, card: str, log):
                 and np.array_equal(f1[i], fp[i])):
             raise AssertionError(f"embedding output != per-row path on "
                                  f"image {i}")
-        work = q1[i][..., :3].reshape(SIDE, SIDE * bpp)
-        for y in range(SIDE):
-            above = work[y - 1] if y else None
-            if adaptive_filter_for_row(above, work[y], bpp, SIDE) != f1[i][y]:
-                raise AssertionError(f"image {i} row {y}: filter {f1[i][y]} "
-                                     "is not libpng's MSAD choice")
+    msad_rows("[6] embedding", [q[..., :3].reshape(SIDE, SIDE * bpp)
+                                for q in q1], f1, bpp)
     mp = b * SIDE * SIDE / 1e6
     log(f"  embedding on {card}: {b} x {SIDE}x{SIDE} RGB at -s {STRENGTH}, "
         f"the ladder over the whole batch (k="
@@ -2232,6 +2297,657 @@ def run_dispatch(device, parent, card: str, image_ms: float, log) -> dict:
     return runs[pool_label][0]["launches"]
 
 
+def photo_rgb(rng, h: int, w: int) -> np.ndarray:
+    """(h, w, 4) opaque RGBA like a camera photo: smooth gradients under a
+    +-6 grain, fine texture (+-40) in the lower third, and hard edges (12
+    flat rectangles and 8 flat discs below the top eighth)."""
+    y, x = np.ogrid[0:h, 0:w]
+    rgb = np.empty((h, w, 3), np.int16)
+    rgb[..., 0] = 30 + x * 190 // w
+    rgb[..., 1] = 40 + y * 170 // h
+    rgb[..., 2] = 60 + (x + y) * 130 // (h + w)
+    rgb += rng.integers(-6, 7, (h, w, 3), dtype=np.int16)
+    lo = 2 * h // 3
+    rgb[lo:] += rng.integers(-40, 41, (h - lo, w, 3), dtype=np.int16)
+    for _ in range(12):
+        top, left = int(rng.integers(h // 8, h)), int(rng.integers(0, w))
+        rgb[top:top + int(rng.integers(h // 75 + 1, h // 4 + 2)),
+            left:left + int(rng.integers(w // 100 + 1, w // 4 + 2))] = (
+                rng.integers(0, 256, 3, dtype=np.int16))
+    for _ in range(8):
+        cy, cx = int(rng.integers(h // 8, h)), int(rng.integers(0, w))
+        r = int(rng.integers(h // 150 + 1, h // 6 + 2))
+        rgb[(y - cy) ** 2 + (x - cx) ** 2 < r * r] = rng.integers(
+            0, 256, 3, dtype=np.int16)
+    out = np.full((h, w, 4), 255, np.uint8)
+    out[..., :3] = np.clip(rgb, 0, 255)
+    return out
+
+
+def screenshot_rgb(rng, h: int, w: int) -> np.ndarray:
+    """(h, w, 4) opaque RGBA like a desktop screenshot: flat fills (a page,
+    a dark sidebar, 6 panels), lines of text-like glyphs every 22 px drawn
+    with 1-2 px strokes, and one gradient (the title bar)."""
+    out = np.full((h, w, 4), 255, np.uint8)
+    out[..., :3] = (246, 246, 244)
+    side = w // 6
+    out[:, :side, :3] = (40, 44, 52)
+    for _ in range(6):
+        top = int(rng.integers(h // 18, h - h // 10 + 1))
+        left = int(rng.integers(side, w - w // 10 + 1))
+        out[top:top + int(rng.integers(h // 18 + 1, h // 4 + 2)),
+            left:left + int(rng.integers(w // 13 + 1, w // 3 + 2)),
+            :3] = rng.integers(200, 256, 3)
+    bar = h // 27 + 1
+    for c, (lo, hi) in enumerate(((20, 90), (60, 140), (150, 230))):
+        out[:bar, :, c] = np.linspace(lo, hi, w).astype(np.uint8)
+    for line in range(bar + 20, h - 20, 22):
+        x = 10 + int(rng.integers(0, 30))
+        while x < w - 20:
+            ink = (230, 230, 230) if x < side else (30, 30, 30)
+            for _ in range(int(rng.integers(2, 9))):           # a word
+                for _ in range(int(rng.integers(2, 4))):       # strokes
+                    th = int(rng.integers(1, 3))
+                    if rng.random() < 0.5:
+                        y0 = line + int(rng.integers(0, 12))
+                        out[y0:y0 + th, x:x + int(rng.integers(3, 9)),
+                            :3] = ink
+                    else:
+                        x0 = x + int(rng.integers(0, 7))
+                        out[line:line + int(rng.integers(6, 14)),
+                            x0:x0 + th, :3] = ink
+                x += 9
+            x += int(rng.integers(6, 30))
+    return out
+
+
+def gray_rgb(rng, n: int) -> np.ndarray:
+    """(n, SIDE, SIDE, 4) opaque gray RGBA (bpp 1): synthetic_rgb's green
+    channel in all three."""
+    rgba = synthetic_rgb(rng, n, SIDE, SIDE)
+    rgba[..., 0] = rgba[..., 2] = rgba[..., 1]
+    return rgba
+
+
+def encode_all(rgbas) -> list[bytes]:
+    """Input PNGs of ``rgbas``, encoded on a pool of os.cpu_count() threads
+    (the host encoder releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pngloss_tpu_torch.codec import encode
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        return list(pool.map(lambda im: encode(im, row_filters=None),
+                             rgbas))
+
+
+def png_filters(png: bytes) -> np.ndarray:
+    """The row filter bytes of a non-interlaced PNG (IDAT, inflated)."""
+    import zlib
+
+    pos, idat, h = 8, [], 0
+    while pos < len(png):
+        n = int.from_bytes(png[pos:pos + 4], "big")
+        kind = png[pos + 4:pos + 8]
+        if kind == b"IHDR":
+            h = int.from_bytes(png[pos + 12:pos + 16], "big")
+        elif kind == b"IDAT":
+            idat.append(png[pos + 8:pos + 8 + n])
+        pos += n + 12
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    return raw[::len(raw) // h].copy()
+
+
+def png_planes(pngs, bpp: int):
+    """Decoded (working-format plane (H, W*bpp), row filters (H,)) of each
+    output PNG, on a thread pool."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pngloss_tpu_torch.codec import decode
+    from pngloss_tpu_torch.pipeline import pack_work
+
+    def one(png):
+        return pack_work(decode(png).rgba, bpp), png_filters(png)
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        return list(pool.map(one, pngs))
+
+
+@contextlib.contextmanager
+def kernel_spans(spans: dict):
+    """While open, every call of the three kernel wrappers that
+    ``ops.optimize_gpu`` makes (``hist.original_frequencies``,
+    ``row.row_retry``, ``image.image_rows``) records CUDA events before and
+    after itself on the current stream (in ``compress_many``, its bucket's
+    pool stream), and its output, into ``spans[name]`` ("hist",
+    "row_retry", "image" or "image_retry"). Single-threaded use only: it
+    swaps the modules' functions."""
+    import torch
+
+    from pngloss_tpu_torch.ops import hist, image, row
+
+    saved = ((hist, "original_frequencies", "hist"),
+             (row, "row_retry", "row_retry"), (image, "image_rows", "image"))
+
+    def timed(fn, name):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            key = "image_retry" if kw.get("retry") else name
+            spans.setdefault(key, []).append((start, end, out))
+            return out
+        return call
+
+    originals = [getattr(mod, attr) for mod, attr, _ in saved]
+    for (mod, attr, name), fn in zip(saved, originals):
+        setattr(mod, attr, timed(fn, name))
+    try:
+        yield spans
+    finally:
+        for (mod, attr, _), fn in zip(saved, originals):
+            setattr(mod, attr, fn)
+
+
+def spans_read(spans: dict) -> dict:
+    """What ``kernel_spans`` saw, once the work has ended: {"ms": CUDA-event
+    ms of each wrapper summed over its calls, "row_attempts": row 0's
+    attempts, "attempts": the image ladder's (embedding mode)}."""
+    out = {"ms": {k: sum(s.elapsed_time(e) for s, e, _ in v)
+                  for k, v in spans.items()}}
+    for key, name in (("row_retry", "row_attempts"),
+                      ("image_retry", "attempts")):
+        if key in spans:
+            out[name] = int(sum(int(o[2].sum()) for _, _, o in spans[key]))
+    return out
+
+
+def entry_run(path: str, need, call):
+    """Run 1 of a phase-14 shape: ``call()`` (an entry point) with the
+    launch counters set to 0 before and read after, and every kernel
+    wrapper timed by CUDA events (``kernel_spans``). Returns (its output,
+    {"wall", "launches", "stages" (tracing.stage seconds), "ms",
+    "row_attempts", "attempts"})."""
+    import torch
+
+    from pngloss_tpu_torch import tracing
+
+    spans: dict = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    tracing.snapshot(reset=True)
+    t0 = time.perf_counter()
+    with kernel_spans(spans):
+        out = call()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    rec = {"wall": wall, "launches": read_counts(path, need),
+           "stages": _stage_sums(tracing.snapshot(reset=True)),
+           **spans_read(spans)}
+    return out, rec
+
+
+def repeat_run(device, planes: np.ndarray, bpp: int, w_real, h_real,
+               use_row_filters: bool):
+    """Run 2 of a phase-14 shape: ``ops.optimize_batch_auto`` alone on the
+    padded planes, on a CUDA stream of its own, so that it can run beside
+    the plain checks in a thread of its own: its host buffers are pinned
+    before anything is queued, its copies back do not block, and it waits
+    for them by polling an event, so that no call of it holds the card
+    (a copy into pageable memory or a pinned allocation would wait for
+    the whole card). Returns host (q, f)."""
+    import torch
+
+    from pngloss_tpu_torch.ops import optimize_batch_auto
+    from pngloss_tpu_torch.pipeline import POLL_S
+
+    src = torch.from_numpy(planes).pin_memory()
+    qh = torch.empty(planes.shape, dtype=torch.uint8, pin_memory=True)
+    fh = torch.empty(planes.shape[:2], dtype=torch.int8, pin_memory=True)
+    stream = torch.cuda.Stream(device)
+    with torch.cuda.stream(stream):
+        q, f = optimize_batch_auto(src, STRENGTH, bpp=bpp, device=device,
+                                   use_row_filters=use_row_filters,
+                                   w_real=w_real, h_real=h_real)
+        qh.copy_(q, non_blocking=True)
+        fh.copy_(f, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    while not done.query():
+        time.sleep(POLL_S)
+    return qh.numpy(), fh.numpy()
+
+
+def bucket_planes(works, bpp: int):
+    """Working-format planes zero-padded into one bucket as
+    ``pipeline.dispatch_buckets`` pads them: (planes (B, H_pad, W_pad*bpp)
+    uint8, w_real, h_real)."""
+    from pngloss_tpu_torch.pipeline import pad_dim
+
+    hp = max(pad_dim(wk.shape[0]) for wk in works)
+    wp = max(pad_dim(wk.shape[1] // bpp) for wk in works)
+    planes = np.zeros((len(works), hp, wp * bpp), np.uint8)
+    for k, wk in enumerate(works):
+        planes[k, :wk.shape[0], :wk.shape[1]] = wk
+    return (planes, np.asarray([wk.shape[1] // bpp for wk in works], np.int32),
+            np.asarray([wk.shape[0] for wk in works], np.int32))
+
+
+def same_planes(label: str, run2, want) -> None:
+    """Run 2's (q, f) equal ``want`` [(plane, filters)] image by image
+    (each sliced to its real size), or raise."""
+    for k, (plane, filt) in enumerate(want):
+        h, wb = plane.shape
+        if not (np.array_equal(run2[0][k, :h, :wb], plane)
+                and np.array_equal(run2[1][k, :h], filt)):
+            raise AssertionError(f"[14] {label}: run 2 differs from run 1 on "
+                                 f"image {k}")
+
+
+def msad_rows(label: str, planes, filters, bpp: int) -> None:
+    """Every row's filter is libpng's MSAD choice for that row (planes
+    (H, W*bpp) and filters (H,) of each image), or raise: the scalar
+    model's ``adaptive_filter_for_row`` (the first of the smallest of the
+    five sums of |filtered byte| as a signed byte) on all rows of a block
+    at once."""
+    for k, (work, f) in enumerate(zip(planes, filters)):
+        for lo in range(0, work.shape[0], 256):
+            px = work[lo:lo + 256].astype(np.int64)
+            above = np.zeros_like(px)
+            above[1:] = px[:-1]
+            if lo:
+                above[0] = work[lo - 1]
+            left, diag = np.zeros_like(px), np.zeros_like(px)
+            left[:, bpp:] = px[:, :-bpp]
+            diag[:, bpp:] = above[:, :-bpp]
+            p, pd = above - diag, left - diag
+            paeth = np.where((abs(p) <= abs(pd)) & (abs(p) <= abs(p + pd)),
+                             left, np.where(abs(pd) <= abs(p + pd), above,
+                                            diag))
+            sums = [np.where(v < 128, v, 256 - v).sum(1) for v in (
+                (px - pred) & 0xFF for pred in (
+                    0, left, above, (left + above) // 2, paeth))]
+            want = np.argmin(np.stack(sums), 0)
+            bad = np.flatnonzero(want != f[lo:lo + 256])
+            if len(bad):
+                y = lo + int(bad[0])
+                raise AssertionError(f"{label}: image {k} row {y}: filter "
+                                     f"{f[y]} is not libpng's MSAD choice "
+                                     f"{want[bad[0]]}")
+
+
+def cut_checks(device, planes, bpp: int, w: int, h: int, n: int, log,
+               beside) -> tuple[dict, object]:
+    """The kernels of one large image against their plain versions on the
+    same card tensors, max abs err 0: the pre-pass over the whole padded
+    plane, row 0's ladder at full width (the same in both modes, so run
+    once), and the image kernel's CLI variant and its ladder (at the k it
+    picks) over rows 1..n-1 at full width, from the whole image's pre-pass
+    and row 0, the kernels stopping at h_real = n on the whole plane (the
+    rows after it 0). All on a stream of its own, which it alone waits
+    for, in inference mode (the plain versions launch kernel by kernel
+    from the host, and autograd's dispatch is ~15% of each launch's host
+    time). ``beside()`` (run 2) runs in a thread of its own beside row 0's
+    check, after row 0's ladder has run once, so that its scratch comes
+    from the caching allocator: a new device allocation there would wait
+    for the whole card. Returns ({kernel: entry} with the band candidates
+    the plain versions counted, for ``bounds``; what ``beside``
+    returned)."""
+    import torch
+
+    with torch.inference_mode(), torch.cuda.stream(torch.cuda.Stream(
+            device)):
+        return _cut_checks(device, planes, bpp, w, h, n, log, beside)
+
+
+def _cut_checks(device, planes, bpp, w, h, n, log, beside):
+    """``cut_checks`` on the current stream."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from pngloss_tpu_torch.ops import hist, image, row
+    from pngloss_tpu_torch.ops.optimize_gpu import row0
+
+    rows = torch.as_tensor(planes, device=device)
+    hp, wb = rows.shape[1:]
+    wp = wb // bpp
+    s, wr, hr = (_i32([v], device) for v in (STRENGTH, w, h))
+    ofreq = hist.original_frequencies(rows, bpp, wr, hr)
+    orig0 = rows[:, 0].reshape(1, wp, bpp).to(torch.int32)
+    zero = row.zero_carry(1, wp, bpp, device)
+    c0, _ = row0(s, 2, orig0, ofreq, wr)
+    args = (s, 2, wr, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist)
+    cut = (*args[:4], rows[:, :n].contiguous(), *args[5:])
+    hn = _i32([n], device)
+    k0 = row.ladder_size(1, bpp, device)
+    k1 = image.ladder_size(1, bpp, device)
+
+    def check_hist():
+        return timed_entry(
+            "hist", lambda: hist.original_frequencies(rows, bpp, wr, hr),
+            lambda _: hist.original_frequencies_ref(rows, bpp, wr, hr),
+            f"1x{hp}x{wp}x{bpp} (real {h}x{w})", 5, log)
+
+    # row 0's ladder once before run 2 starts (see cut_checks)
+    rounds = torch.zeros(1, dtype=torch.int32, device=device)
+    row.row0_retry(s, 2, orig0, ofreq, wr, rounds=rounds)
+
+    def check_row0():
+        out = timed_entry(
+            "row_retry", lambda: row.row0_retry(s, 2, orig0, ofreq, wr),
+            lambda cnt: row.row_retry_ref(s, 2, orig0, zero, ofreq, wr,
+                                          count=cnt),
+            f"1x1x{wp}x{bpp} (row 0, real {w * bpp} bytes; ladder k={k0})",
+            3, log, keep=True)
+        want = out.pop("want")
+        if _max_err(rounds, (want[2] + k0 - 1) // k0):
+            raise AssertionError(f"[14] row 0's ladder: rounds "
+                                 f"{rounds.tolist()} for attempts "
+                                 f"{want[2].tolist()} at k={k0}")
+        return {**out, "attempts": int(want[2].sum()), "k": k0,
+                "rounds": rounds.tolist()}
+
+    def padded(want):
+        # the plain version's rows 1..n-1, then 0 up to the plane's last
+        # row, as the kernel writes the rows after h_real
+        return tuple(torch.cat([t, t.new_zeros((1, hp - n, *t.shape[2:]))],
+                               1) if t.dim() > 1 else t for t in want)
+
+    def check_image():
+        out = timed_entry(
+            "image", lambda: image.image_rows(*args, h_real=hn),
+            lambda cnt: padded(image.image_rows_ref(*cut, count=cnt)),
+            f"1x{n}x{wp}x{bpp} (rows 1-{n - 1} of the whole {hp}-row "
+            f"plane, h_real={n})", 2, log)
+        return {**out, "h": n}
+
+    def check_ladder():
+        plain, rounds = (torch.zeros(1, dtype=torch.int32, device=device)
+                         for _ in range(2))
+        out = timed_entry(
+            "image_retry", lambda: image.image_rows(
+                *args, adaptive=True, retry=True, h_real=hn),
+            lambda cnt: padded(image.image_rows_ladder_ref(
+                *cut, k=k1, rounds=plain, count=cnt)),
+            f"1x{n}x{wp}x{bpp} (rows 1-{n - 1} of the whole {hp}-row "
+            f"plane, h_real={n}; ladder k={k1})", 2, log)
+        image.image_rows(*args, h_real=hn, adaptive=True, retry=True,
+                         rounds=rounds)
+        if _max_err(rounds, plain):
+            raise AssertionError(f"[14] the image ladder: rounds "
+                                 f"{rounds.tolist()}, plain "
+                                 f"{plain.tolist()}")
+        return {**out, "k": k1, "rounds": rounds.tolist(), "h": n}
+
+    out = {"hist": check_hist()}
+    with ThreadPoolExecutor(1) as pool:
+        run2 = pool.submit(beside)
+        out["row_retry"] = check_row0()
+        done = run2.result()
+    out.update(image=check_image(), image_retry=check_ladder())
+    return out, done
+
+
+def large_image(device, name: str, rgba: np.ndarray, n: int, card: str,
+                log) -> dict:
+    """One large image (phase 14): CLI mode through ``compress_many`` and
+    embedding mode through ``optimize_rgba_batch`` (run 1: launches
+    counted, every kernel wrapper timed by CUDA events), each again through
+    ``optimize_batch_auto`` (run 2, equal to run 1) beside every kernel on
+    the path against its plain version (``cut_checks``, rows 1..n-1 for
+    the image stages). Returns its numbers."""
+    from pngloss_tpu_torch import pipeline
+    from pngloss_tpu_torch.codec import decode
+
+    h, w = rgba.shape[:2]
+    work, bpp = pipeline.reduce_colorspace(rgba)
+    planes, wr, hr = bucket_planes([work], bpp)
+    mp = h * w / 1e6
+    t0 = time.perf_counter()
+    (png,) = encode_all([rgba])
+    log(f"  {name}: {w}x{h} RGB ({mp:.3f} MP) in a {planes.shape[2] // bpp}x"
+        f"{planes.shape[1]} bucket, input PNG {len(png)} bytes (encoded in "
+        f"{time.perf_counter() - t0:.1f} s), -s {STRENGTH}, on {card}")
+    rec = {"h": h, "w": w, "bpp": bpp,
+           "bucket": [planes.shape[1], planes.shape[2] // bpp]}
+
+    (res,), cli = entry_run(
+        f"[14] {name} compress_many", CLI_KERNELS,
+        lambda: pipeline.compress_many([png], STRENGTH, device=device))
+    launches = cli["launches"]
+    if (launches["hist"], launches["row_retry"], launches["image"],
+            launches["row"], launches["image_adaptive"],
+            launches["image_retry"]) != (1, 1, 1, 0, 0, 0):
+        raise AssertionError(f"[14] {name} compress_many launched {launches}")
+    out_png = res.unwrap()
+    if decode(out_png).rgba.shape != rgba.shape:
+        raise AssertionError(f"[14] {name}: the output decodes to another "
+                             "size")
+    cli.update(mp_s=mp / cli["wall"], bytes=[len(png), len(out_png)])
+    log(f"  {name} CLI mode: compress_many {cli['wall']:.3f} s "
+        f"({cli['mp_s']:.3f} MP/s), {len(png)} -> {len(out_png)} bytes; "
+        f"stages (s, summed over threads) {json.dumps(cli['stages'])}; "
+        f"launches {launches}; CUDA-event ms " + json.dumps(cli["ms"]))
+
+    ((q1,), (f1,)), embed = entry_run(
+        f"[14] {name} optimize_rgba_batch", EMBED_KERNELS,
+        lambda: pipeline.optimize_rgba_batch(
+            [rgba], STRENGTH, use_row_filters=False, device=device))
+    launches = embed["launches"]
+    if (launches["hist"], launches["row_retry"], launches["image_retry"],
+            launches["row"], launches["image"],
+            launches["image_adaptive"]) != (1, 1, 1, 0, 0, 0):
+        raise AssertionError(f"[14] {name} embedding launched {launches}")
+    q1 = pipeline.pack_work(q1, bpp)
+    msad_rows(f"[14] {name} embedding", [q1], [f1], bpp)
+    embed["mp_s"] = mp / embed["wall"]
+    log(f"  {name} embedding mode: optimize_rgba_batch {embed['wall']:.3f} s "
+        f"({embed['mp_s']:.3f} MP/s), every row's filter libpng's MSAD "
+        f"choice; {embed['attempts']} row attempts (rows 1-{h - 1}); "
+        f"launches {launches}; CUDA-event ms " + json.dumps(embed["ms"]))
+
+    # run 2 of both modes beside the plain checks (the kernels' times come
+    # from run 1)
+    t0 = time.perf_counter()
+    checks, (run2_cli, run2_embed) = cut_checks(
+        device, planes, bpp, w, h, n, log, lambda: [
+            repeat_run(device, planes, bpp, wr, hr, mode)
+            for mode in (True, False)])
+    same_planes(f"{name} CLI mode", run2_cli, png_planes([out_png], bpp))
+    same_planes(f"{name} embedding mode", run2_embed, [(q1, f1)])
+    log(f"  {name}: run 2 of both modes (optimize_batch_auto) equal to run "
+        f"1 in planes and filters; every kernel equal to its plain version "
+        f"(max abs err 0; the image stages over rows 1-{n - 1}); "
+        f"{time.perf_counter() - t0:.1f} s for both")
+    # bounds at the whole image's real size; the band candidates the
+    # plain versions counted (the image stages' over rows 1..n-1 only, so
+    # theirs are lower bounds)
+    # (the CLI run's times and launches; the ladder's the embedding run's)
+    full = {"hist": (cli, 0, 0),
+            "row_retry": (cli, checks["row_retry"]["candidates"],
+                          checks["row_retry"]["attempts"]),
+            "image": (cli, checks["image"]["candidates"], 0),
+            "image_retry": (embed, checks["image_retry"]["candidates"],
+                            embed["attempts"])}
+    rec.update(cli=cli, embed=embed, kernels={})
+    for kname, (run, cands, attempts) in full.items():
+        ms, launched = run["ms"][kname], run["launches"][kname]
+        bound_ms, bound_by = bounds(kname, 1, 1 if kname == "row_retry"
+                                    else h, w, bpp, cands, attempts)
+        c = checks[kname]
+        rec["kernels"][kname] = dict(
+            ms=ms, launches=launched, bound_ms=bound_ms, bound_by=bound_by,
+            share=bound_ms / ms, max_abs_err=c["max_abs_err"],
+            checked=c["shape"], checked_ms=c["ms"], plain_ms=c["plain_ms"],
+            **{k: c[k] for k in ("k", "rounds", "attempts", "h") if k in c})
+        log(f"  {name} {kname:11s} launches {launched} {ms:12.3f} ms (run 1, "
+            f"CUDA events)  "
+            f"bound {bound_ms:.6f} ms ({bound_by}), share {bound_ms / ms:.2e}"
+            f"; checked at {c['shape']}: kernel {c['ms']:.3f} ms, plain "
+            f"{c['plain_ms']:.3f} ms")
+    return rec
+
+
+def full_card(device, pngs16, want16, card: str, log) -> dict:
+    """Phase 14's full card: CARD_IMAGES[0] 512x512 RGB images, phase 5's 16
+    and more (one block per SM), then CARD_IMAGES[1] (those and as many
+    more: two waves), in one ``compress_many`` each (run 1, the kernels
+    timed), and again through ``optimize_batch_auto`` (run 2, equal to run
+    1). The first 16 give phase 5's bytes, the first CARD_IMAGES[0] of the
+    larger call those of the smaller."""
+    from pngloss_tpu_torch import pipeline
+
+    rec = {}
+    pngs = list(pngs16)
+    rgbs = [synthetic_rgb(np.random.default_rng(SEED + 4), N_IMAGES, SIDE,
+                          SIDE)[..., :3]]                # phase 5's images
+    before = None
+    for n, seed in zip(CARD_IMAGES, (SEED + 15, SEED + 16)):
+        t0 = time.perf_counter()
+        more = synthetic_rgb(np.random.default_rng(seed), n - len(pngs),
+                             SIDE, SIDE, np.int16)
+        pngs += encode_all(more)
+        rgbs.append(more[..., :3])
+        made = time.perf_counter() - t0
+        res, run1 = entry_run(
+            f"[14] {n} images compress_many", CLI_KERNELS,
+            lambda: pipeline.compress_many(pngs, STRENGTH, device=device))
+        got = [r.unwrap() for r in res]
+        launches = run1["launches"]
+        if (launches["hist"], launches["row_retry"], launches["image"],
+                launches["row"]) != (1, 1, 1, 0):
+            raise AssertionError(f"[14] {n} images launched {launches}")
+        if got[:16] != want16:
+            raise AssertionError(f"[14] {n} images: the first 16 differ from "
+                                 "phase 5's bytes")
+        if before is not None and got[:len(before)] != before:
+            raise AssertionError(f"[14] {n} images: the first {len(before)} "
+                                 "differ from the smaller call's bytes")
+        decoded = png_planes(got, 3)
+        if any(p.shape != (SIDE, SIDE * 3) for p, _ in decoded):
+            raise AssertionError(f"[14] {n} images: an output decodes to "
+                                 "another size")
+        planes = np.concatenate(rgbs).reshape(n, SIDE, SIDE * 3)
+        wr = hr = np.full(n, SIDE, np.int32)
+        same_planes(f"{n} images", repeat_run(device, planes, 3, wr, hr,
+                                              True), decoded)
+        mp = n * SIDE * SIDE / 1e6
+        stages, ms = run1["stages"], run1["ms"]
+        bound = {k: bounds(k, n, 1 if k == "row_retry" else SIDE, SIDE, 3,
+                           attempts=run1["row_attempts"]) for k in ms}
+        run1.update(mp_s=mp / run1["wall"], inputs_s=made,
+                    bound={k: dict(ms=b, by=by, share=b / ms[k])
+                           for k, (b, by) in bound.items()})
+        rec[n] = run1
+        workers = os.cpu_count() or 1
+        log(f"  {n} x {SIDE}x{SIDE} RGB on {card}: compress_many "
+            f"{run1['wall']:.3f} s ({run1['mp_s']:.3f} MP/s); stages (s, "
+            f"summed over threads) {json.dumps(stages)}; launches "
+            f"{launches}; CUDA-event ms {json.dumps(ms)}; run 2 "
+            f"(optimize_batch_auto) equal in planes and filters; kernels "
+            f"{sum(ms.values()) / 1e3:.3f} s against host encode "
+            f"{stages['host_encode']:.3f} thread-s over {workers} threads "
+            f"({stages['host_encode'] / workers:.3f} s); bound (operations "
+            "without band candidates, not counted here) " + ", ".join(
+                f"{k} {b:.6f} ms ({by}, share {b / ms[k]:.2e})"
+                for k, (b, by) in bound.items()))
+        before = got
+    return rec
+
+
+def gray_embedding(device, card: str, log) -> dict:
+    """Phase 14's gray batch: GRAY_IMAGES 512x512 gray images (bpp 1) in
+    embedding mode (run 1, launches counted, the kernels timed; run 2
+    through ``optimize_batch_auto``, equal), every row's filter libpng's
+    MSAD choice, the ladder at the k it picks against the plain ladder
+    over rows 1..GRAY_ROWS-1."""
+    import torch
+
+    from pngloss_tpu_torch import pipeline
+    from pngloss_tpu_torch.ops import image, ladder, row
+
+    rgba = gray_rgb(np.random.default_rng(SEED + 17), GRAY_IMAGES)
+    (qs, fs), run1 = entry_run(
+        "[14] gray optimize_rgba_batch", EMBED_KERNELS,
+        lambda: pipeline.optimize_rgba_batch(
+            list(rgba), STRENGTH, use_row_filters=False, device=device))
+    qs = [pipeline.pack_work(q, 1) for q in qs]
+    msad_rows("[14] gray embedding", qs, fs, 1)
+    works = [pipeline.reduce_colorspace(im)[0] for im in rgba]
+    planes, wr, hr = bucket_planes(works, 1)
+    same_planes("gray embedding", repeat_run(device, planes, 1, wr, hr,
+                                             False), list(zip(qs, fs)))
+    args, _ = gray_inputs(device, planes)
+    k = image.ladder_size(GRAY_IMAGES, 1, device)
+    n = GRAY_ROWS
+    cut = (*args[:4], args[4][:, :n].contiguous(), *args[5:])
+    rounds, plain = (torch.zeros(GRAY_IMAGES, dtype=torch.int32,
+                                 device=device) for _ in range(2))
+    got = image.image_rows(*args, adaptive=True, retry=True, rounds=rounds,
+                           h_real=_i32([n] * GRAY_IMAGES, device))
+    want = image.image_rows_ladder_ref(*cut, k=k, rounds=plain)
+    err = max(_max_err((got[0][:, :n - 1], got[1][:, :n - 1], got[2]), want),
+              _max_err(rounds, plain))
+    if err:
+        raise AssertionError(f"[14] gray: the ladder at k={k} != its plain "
+                             f"version over rows 1-{n - 1}: max abs err {err}")
+    resident = {name: ladder.resident_clusters(mod.clusters, 1, device)
+                for name, mod in (("image", image), ("row", row))}
+    run1.update(mp_s=GRAY_IMAGES * SIDE * SIDE / 1e6 / run1["wall"],
+                resident=resident, k={
+                    "image": k, "row": row.ladder_size(GRAY_IMAGES, 1,
+                                                       device)})
+    log(f"  {GRAY_IMAGES} x {SIDE}x{SIDE} gray, embedding mode on {card}: "
+        f"optimize_rgba_batch {run1['wall']:.3f} s ({run1['mp_s']:.3f} "
+        f"MP/s); launches {run1['launches']}; CUDA-event ms "
+        f"{json.dumps(run1['ms'])}; {run1['attempts']} row attempts; run 2 "
+        f"equal; every row's filter libpng's MSAD choice; ladders at bpp 1: "
+        f"clusters resident {resident}, k picked {run1['k']}; the image "
+        f"ladder over rows 1-{n - 1} equal to its plain ladder (rounds too)")
+    return run1
+
+
+def gray_inputs(device, planes=None):
+    """Phase 14's gray batch as the image stage's inputs (from its own
+    pre-pass and row 0): (image_rows args, the RGBA images)."""
+    import torch
+
+    from pngloss_tpu_torch.ops import hist
+    from pngloss_tpu_torch.ops.optimize_gpu import row0
+
+    rgba = gray_rgb(np.random.default_rng(SEED + 17), GRAY_IMAGES)
+    if planes is None:
+        planes = np.ascontiguousarray(rgba[..., 1])
+    rows = torch.as_tensor(planes, device=device)
+    b = GRAY_IMAGES
+    s, wr = _i32([STRENGTH] * b, device), _i32([SIDE] * b, device)
+    ofreq = hist.original_frequencies(rows, 1, wr, _i32([SIDE] * b, device))
+    c0, _ = row0(s, 2, rows[:, 0].reshape(b, SIDE, 1).to(torch.int32),
+                 ofreq, wr)
+    return (s, 2, wr, ofreq, rows, c0.qprev, c0.e0, c0.e1, c0.hist), rgba
+
+
+def run_users(device, pngs16, want16, card: str, log) -> dict:
+    """Phase 14: the port at its users' sizes. Returns its numbers."""
+    out = {}
+    for name, make, (h, w) in (("photo", photo_rgb, PHOTO),
+                               ("screenshot", screenshot_rgb, SCREEN)):
+        t0 = time.perf_counter()
+        out[name] = large_image(device, name, make(np.random.default_rng(
+            USERS_SEED), h, w), USER_ROWS[name], card, log)
+        log(f"  ({name}: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["full_card"] = full_card(device, pngs16, want16, card, log)
+    log(f"  (full card: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out["gray"] = gray_embedding(device, card, log)
+    log(f"  (gray: {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU.")
@@ -2325,6 +3041,12 @@ def main(argv=None) -> int:
         phase()
         log(f"  ({time.perf_counter() - t0:.1f} s)")
 
+    log("[14] the port at its users' sizes")
+    t0 = time.perf_counter()
+    users = run_users(device, pngs, want, card, log)
+    users["seconds"] = time.perf_counter() - t0
+    log(f"  ({users['seconds']:.1f} s)")
+
     kernels = []
     log(f"[3b] kernels on the main path (SM clock now, max: {sm_clocks()})")
     for name, src, rep in KERNELS:
@@ -2352,7 +3074,8 @@ def main(argv=None) -> int:
     log(f"[end] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
         f"({'with' if args.parent else 'without'} --parent)")
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "users_sizes": users}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

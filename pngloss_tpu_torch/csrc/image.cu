@@ -55,46 +55,47 @@
 // The TPU kernel's lane rolls, selection matmuls and bf16 tricks are TPU
 // forms of this broadcast and are not needed here.
 //
-// ladder_kernel: the attempts of one row at strengths s, s-1, ... all
-// start from the same state (the previous row's winner row, dither rows
-// and histogram), so they are independent; the loop keeps the first of
-// them, in descending strength, with a passing filter. A thread-block
-// cluster of k blocks ("rungs") runs one image and k strengths at once:
-// in round j of a row, rung r runs strength s - j*k - r (a rung below 0
-// runs nothing and passes nothing) as one block of the image kernel's
-// shape, each rung on an SM of its own (a sixth warp on an SM's four
-// schedulers would slow the chain, where the SMs a one-block-per-image
-// launch leaves idle cost nothing). After a round the cluster meets
-// (barrier.cluster) and every block reads all rungs' passing flags and
-// costs from their shared memory (distributed shared memory) and picks
-// the same winner: the lowest rung with a passing filter, its first
-// passing minimum; where none passes and the round reached strength 0,
-// the strength-0 rung with its minimum true cost; otherwise every rung
-// reloads the histogram at row start and runs the next round. Rounds
-// write alternating cost and flag buffers, so a round's flags are never
-// rewritten before every block has read them. The winning warp posts its
-// histogram to its block's shared memory and the cluster meets again;
-// every other block copies that histogram over distributed shared memory,
-// and the winner's row and dither rows from the winner rung's global set
-// into its own set (same filter slot), which the next row then reads in
-// place. That copy is what makes the next row correct on every rung:
-// cluster::sync() is barrier.cluster.arrive.release followed by
-// barrier.cluster.wait.acquire, so every global and shared store a block
-// makes before it arrives happens before every load another block of the
-// cluster makes after its wait (PTX memory model, cluster scope). Those
-// loads must be ordinary coherent ones: the chain reads its previous row
-// through const __restrict__ pointers, which the compiler may turn into
-// non-coherent loads (ld.global.nc) that the barrier does not cover, so
-// the chain only ever reads rows its own block wrote, as in image_kernel,
-// and the copy reads the other rung's set with ld.global.cg (L2, coherent
-// across SMs). The winner rung reads its own set and copies nothing; at
-// k = 1 nothing is ever copied and the kernel does what the one-block
-// retry loop did. The sequential count of attempts, s - s_win + 1 a row,
-// is j*k + r + 1 for rung r winning round j; rounds per row are
-// ceil(attempts / k). Only the winner rung writes qrows (the previous
-// row's winner copies that row off its chain, as in image_kernel) and
-// filt; rung 0 writes attempts, rounds and the padded rows.
+// ladder_kernel: the attempts of one row at strengths s, s-1, ... all start
+// from the same state (the previous row's winner row, dither rows and
+// histogram), so they are independent; the loop keeps the first of them, in
+// descending strength, with a passing filter. A thread-block cluster of k
+// blocks ("rungs") runs one image and k strengths at once: in round j of a
+// row, rung r runs strength s - j*k - r (a rung below 0 runs nothing and
+// passes nothing) as one block of the image kernel's shape, each rung on an SM
+// of its own (a sixth warp on an SM's four schedulers would slow the chain,
+// where the SMs a one-block-per-image launch leaves idle cost nothing): the
+// launch bound asks for one block per SM, and each rung claims more than half
+// of the SM's shared memory (plk::kRungClaim; at bpp 1 the registers alone let
+// two blocks in). After a round the cluster meets (barrier.cluster) and every
+// block reads all rungs' passing flags and costs from their shared memory
+// (distributed shared memory) and picks the same winner: the lowest rung with
+// a passing filter, its first passing minimum; where none passes and the round
+// reached strength 0, the strength-0 rung with its minimum true cost;
+// otherwise every rung reloads the histogram at row start and runs the next
+// round. Rounds write alternating cost and flag buffers, so a round's flags
+// are never rewritten before every block has read them. The winning warp posts
+// its histogram to its block's shared memory and the cluster meets again;
+// every other block copies that histogram over distributed shared memory, and
+// the winner's row and dither rows from the winner rung's global set into its
+// own set (same filter slot), which the next row then reads in place. That
+// copy is what makes the next row correct on every rung: cluster::sync() is
+// barrier.cluster.arrive.release followed by barrier.cluster.wait.acquire, so
+// every global and shared store a block makes before it arrives happens before
+// every load another block of the cluster makes after its wait (PTX memory
+// model, cluster scope). Those loads must be ordinary coherent ones: the chain
+// reads its previous row through const __restrict__ pointers, which the
+// compiler may turn into non-coherent loads (ld.global.nc) that the barrier
+// does not cover, so the chain only ever reads rows its own block wrote, as in
+// image_kernel, and the copy reads the other rung's set with ld.global.cg (L2,
+// coherent across SMs). The winner rung reads its own set and copies nothing;
+// at k = 1 nothing is ever copied and the kernel does what the one-block retry
+// loop did. The sequential count of attempts, s - s_win + 1 a row, is j*k + r
+// + 1 for rung r winning round j; rounds per row are ceil(attempts / k). Only
+// the winner rung writes qrows (the previous row's winner copies that row off
+// its chain, as in image_kernel) and filt; rung 0 writes attempts, rounds and
+// the padded rows.
 
+#include <atomic>
 #include <climits>
 #include <cstdint>
 #include <cooperative_groups.h>
@@ -238,7 +239,8 @@ image_kernel(const int* __restrict__ s, int bleed,
 // filter). Strengths below 0 count as 0. A rung wants an SM of its own, so
 // the launch bound asks for one block per SM, which leaves ptxas the
 // registers to keep the chain out of local memory (at bpp 3, nvcc 12.9:
-// 194 registers and no spill; 168 and a spill without the minimum).
+// 194 registers and no spill; 168 and a spill without the minimum), and
+// the launch claims plk::kRungClaim bytes of shared memory.
 template <int BPP>
 __global__ void __launch_bounds__(plk::kFilters * plk::kWarp, 1)
 ladder_kernel(const int* __restrict__ s, int bleed,
@@ -417,6 +419,9 @@ cudaError_t ladder_kernel_of(int bpp, int k, LadderFn* kernel) {
   return cudaSuccess;
 }
 
+// the image ladder's shared-memory claims (plk::claim_shared)
+std::atomic<unsigned> claimed[plk::kMaxDevices];
+
 }  // namespace
 
 // s, w_real, h_real (B,); ofreq (B, 5, 256); rows (B, H, W*bpp) uint8;
@@ -464,11 +469,13 @@ extern "C" int plk_image_rows(const void* s, int bleed, const void* w_real,
   if (attempts) {
     LadderFn kernel = nullptr;
     cudaError_t err = ladder_kernel_of(bpp, k, &kernel);
+    if (err == cudaSuccess) err = plk::claim_shared(kernel, bpp, claimed);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchAttribute attr = plk::cluster_of(k);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(static_cast<unsigned>(B) * k);
     cfg.blockDim = dim3(plk::kFilters * plk::kWarp);
+    cfg.dynamicSmemBytes = plk::kRungClaim;
     cfg.stream = st;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
@@ -506,11 +513,13 @@ extern "C" int plk_image_rows(const void* s, int bleed, const void* w_real,
 extern "C" int plk_ladder_clusters(int k, int bpp, int* clusters) {
   LadderFn kernel = nullptr;
   cudaError_t err = ladder_kernel_of(bpp, k, &kernel);
+  if (err == cudaSuccess) err = plk::claim_shared(kernel, bpp, claimed);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr = plk::cluster_of(k);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(k));
   cfg.blockDim = dim3(plk::kFilters * plk::kWarp);
+  cfg.dynamicSmemBytes = plk::kRungClaim;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return static_cast<int>(cudaOccupancyMaxActiveClusters(

@@ -39,6 +39,7 @@
 // Integer division is C's: it truncates toward zero, as the reference does.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -51,6 +52,36 @@ constexpr unsigned kFull = 0xffffffffu;
 // the most rungs a ladder's cluster may have (row.cu, image.cu): the
 // largest portable cluster size
 constexpr int kMaxRungs = 8;
+
+// Dynamic shared memory each rung of a ladder (row.cu, image.cu) claims and
+// leaves unused: more than half of an SM's 228 KB, so no two rungs share an
+// SM. With the registers alone the occupancy queries counted 30 clusters of
+// 8 where only 15 fit one block to an SM (the row ladder at bpp 1-3, the
+// image ladder at bpp 1), and 16 images at k = 8 put one cluster two to an
+// SM, whose rounds ran slower (PERF.md §6).
+constexpr int kRungClaim = 120 * 1024;
+// devices whose claims a caller's flags (claim_shared) keep apart
+constexpr int kMaxDevices = 64;
+
+// Lets a ladder kernel take kRungClaim bytes of dynamic shared memory on
+// the current device. The attribute holds per device and kernel, so each
+// ladder keeps one word of flags a device (claimed, bit bpp for its kernel
+// at bpp) and the attribute is set once per device and bpp, at the first
+// launch or occupancy query there.
+template <typename Kernel>
+cudaError_t claim_shared(Kernel kernel, int bpp,
+                         std::atomic<unsigned>* claimed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = 1u << bpp;
+  if (dev < kMaxDevices && (claimed[dev].load() & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kRungClaim);
+  if (err == cudaSuccess && dev < kMaxDevices) claimed[dev].fetch_or(bit);
+  return err;
+}
 
 // The launch attribute of a cluster of k blocks along x (the ladders).
 inline cudaLaunchAttribute cluster_of(int k) {

@@ -78,13 +78,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// Dynamic shared memory each rung claims and leaves unused: more than half
-// of an SM's 228 KB, so no two rungs share an SM. At bpp 1-3 the registers
-// alone let two blocks in, and the occupancy query then counted 30
-// clusters of 8 where only 15 fit one block to an SM: 16 images at k = 8
-// put one cluster two to an SM, and its rounds ran slower (PERF.md §6).
-constexpr int kRungClaim = 120 * 1024;
-
 // One row of B images, one attempt, one block per image, one warp per
 // filter: the 5 candidates (qrow, hist_out (B, 5, 256), e0n, e1n).
 template <int BPP>
@@ -129,7 +122,7 @@ row_kernel(const int* __restrict__ s, int bleed,
 // candidates per (image, rung). Strengths below 0 count as 0. A rung wants
 // an SM of its own, so the launch bound asks for one block per SM, which
 // leaves ptxas the registers for the chain (as ladder_kernel in image.cu),
-// and the launch claims kRungClaim bytes of shared memory.
+// and the launch claims plk::kRungClaim bytes of shared memory.
 template <int BPP>
 __global__ void __launch_bounds__(plk::kFilters * plk::kWarp, 1)
 row_ladder_kernel(const int* __restrict__ s, int bleed,
@@ -277,24 +270,8 @@ cudaError_t row_ladder_of(int bpp, int k, RowLadderFn* kernel) {
   return cudaSuccess;
 }
 
-// Lets the kernel at bpp take kRungClaim bytes of shared memory on the
-// current device. The attribute holds per device, so it is set once per
-// device and bpp, at the first launch or occupancy query there.
-constexpr int kMaxDevices = 64;
-std::atomic<unsigned> claimed[kMaxDevices];   // bit bpp: attribute set
-
-cudaError_t claim_shared(int bpp, RowLadderFn kernel) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned bit = 1u << bpp;
-  if (dev < kMaxDevices && (claimed[dev].load() & bit)) return cudaSuccess;
-  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kRungClaim);
-  if (err == cudaSuccess && dev < kMaxDevices) claimed[dev].fetch_or(bit);
-  return err;
-}
+// the row ladder's shared-memory claims (plk::claim_shared)
+std::atomic<unsigned> claimed[plk::kMaxDevices];
 
 }  // namespace
 
@@ -351,13 +328,13 @@ extern "C" int plk_row_retry(const void* s, int bleed, const void* w_real,
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   RowLadderFn kernel = nullptr;
   cudaError_t err = row_ladder_of(bpp, k, &kernel);
-  if (err == cudaSuccess) err = claim_shared(bpp, kernel);
+  if (err == cudaSuccess) err = plk::claim_shared(kernel, bpp, claimed);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr = plk::cluster_of(k);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(B) * k);
   cfg.blockDim = dim3(plk::kFilters * plk::kWarp);
-  cfg.dynamicSmemBytes = kRungClaim;
+  cfg.dynamicSmemBytes = plk::kRungClaim;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
@@ -381,13 +358,13 @@ extern "C" int plk_row_retry(const void* s, int bleed, const void* w_real,
 extern "C" int plk_row_ladder_clusters(int k, int bpp, int* clusters) {
   RowLadderFn kernel = nullptr;
   cudaError_t err = row_ladder_of(bpp, k, &kernel);
-  if (err == cudaSuccess) err = claim_shared(bpp, kernel);
+  if (err == cudaSuccess) err = plk::claim_shared(kernel, bpp, claimed);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr = plk::cluster_of(k);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(k));
   cfg.blockDim = dim3(plk::kFilters * plk::kWarp);
-  cfg.dynamicSmemBytes = kRungClaim;
+  cfg.dynamicSmemBytes = plk::kRungClaim;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return static_cast<int>(cudaOccupancyMaxActiveClusters(

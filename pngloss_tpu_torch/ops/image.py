@@ -78,9 +78,9 @@ def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
 
     The row step (the 5 candidates, and with ``adaptive`` their MSAD
     self-check) reads and writes fixed buffers. On a CUDA tensor it is
-    captured once in a CUDA graph and replayed for every row: the same
-    kernels on the same data, without the ~80k host launches per 512-px RGB
-    row of an eager run."""
+    captured once in a CUDA graph and replayed for every row after the
+    first few (``replayable``): the same kernels on the same data, without
+    the ~80k host launches per 512-px RGB row of an eager run."""
     b, h, wb = rows.shape
     w, bpp = qprev0.shape[1], qprev0.shape[2]
     dev = rows.device
@@ -100,10 +100,7 @@ def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
                        if adaptive else None)
             return q5, h5, e0n, e1n, passing
 
-        counted = None if count is None else count.clone()
         step = replayable(row_step, dev)
-        if count is not None:
-            count.copy_(counted)      # the graph's warm-up run counted too
         for y in range(1, h):
             orow.copy_(orig[:, y])
             q5, h5, e0n, e1n, passing = step()
@@ -149,10 +146,7 @@ def image_rows_retry_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
             return quantize_row(s_now, bleed, orow, qprev, e0, e1, hist,
                                 ofreq, w_real, count)
 
-        counted = None if count is None else count.clone()
         step = replayable(quantize, dev)
-        if count is not None:
-            count.copy_(counted)      # the graph's warm-up run counted too
 
         def attempt(s_try):
             s_now.copy_(s_try)

@@ -343,24 +343,32 @@ def strength_loop(attempt, s, orow, qprev, oprev, e0, e1, hist, w_real,
 
 
 def replayable(fn, device):
-    """``fn`` itself on the CPU. On CUDA, ``fn`` captured once in a CUDA
-    graph: each call replays its kernels and returns the same output
-    tensors, refilled. ``fn`` must not write its inputs. The plain
-    versions run their repeated step (a row, an attempt) so on the card."""
+    """``fn`` itself on the CPU. On CUDA, ``fn`` run eagerly on its first
+    call, then captured once in a CUDA graph: each later call replays its
+    kernels and returns the same output tensors, refilled. ``fn`` must not
+    write its inputs. The plain versions run their repeated step (a row, an
+    attempt) so on the card. A capture costs about one eager call more
+    and grows faster than the step (a 12288-step row: ~30 s against ~19 s
+    eager on an H100, PERF.md), so a step run once (a row 0 that passes at
+    once, one row of a cut) is never captured. The capture is
+    thread-local: another thread may run work on its own stream
+    meanwhile."""
     if device.type != "cuda":
         return fn
-    with torch.cuda.device(device):
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            fn()                # warm-up: lazy initialisation off the graph
-        torch.cuda.current_stream(device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = fn()
+    graph = out = None
+    first = True
 
     def replay():
+        nonlocal graph, out, first
         with torch.cuda.device(device):
+            if first:                # also the lazy initialisation
+                first = False
+                return fn()
+            if graph is None:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph,
+                                      capture_error_mode="thread_local"):
+                    out = fn()
             graph.replay()
         return out
     return replay

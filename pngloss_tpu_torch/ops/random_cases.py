@@ -7,8 +7,9 @@ every other row of half the images with alpha, and strengths over 0-255.
 ``random_bleed`` draws a batch's bleed. Those feed the entry points.
 
 ``random_bucket`` feeds the kernels directly: one padded shape, from the
-pipeline's pad ladder or wide and short (2-4 rows of 200-1536 px at bpp 4),
-and B images whose real sizes lie inside it, zero-padded as the pipeline
+pipeline's pad ladder, wide and short (2-4 rows of 200-1536 px at bpp 4)
+or, where its limit on channel steps allows, long (2-3 rows of 2000-8192
+px at bpp 1-4: the rows of users' photos and screenshots), and B images whose real sizes lie inside it, zero-padded as the pipeline
 pads them, so that one batch is one launch of each kernel. Per image it
 draws a strength over 0-255 and, for low strengths, sometimes the
 test-only ``never_pass`` flag of the image kernel's adaptive and retry
@@ -30,6 +31,10 @@ BLEEDS = (1, 2, 3, 5, 17, 255, 32767)
 # rows and pixels (at bpp 4)
 MAX_BATCH = 8
 WIDE_SHARE, WIDE_H, WIDE_W = 0.125, (2, 4), (200, 1536)
+# the share of long buckets, their rows and pixels (at bpp 1-4); drawn only
+# where max_steps holds the smallest of them, so that a lower limit draws
+# the same buckets as before they existed
+LONG_SHARE, LONG_H, LONG_W = 0.25, (2, 3), (2000, 8192)
 # never_pass is drawn, for half of them, only for images at strengths up
 # to this: a flagged row takes s + 1 attempts
 NEVER_PASS_MAX_STRENGTH = 16
@@ -86,12 +91,18 @@ def random_bucket(rng, max_steps: int = 4096, max_strength: int = 255
                   ) -> Bucket:
     """One bucket: a padded shape whose image-kernel chain, (H-1) x W x
     bpp channel steps, is at most ``max_steps`` (the plain versions' cost
-    on the card grows with it), wide and short with probability
-    WIDE_SHARE, else H and W from the pad ladder; then 1..MAX_BATCH
-    images, the first of the whole padded size, the others of real sizes
-    drawn inside it."""
+    on the card grows with it): long with probability LONG_SHARE where
+    ``max_steps`` allows (LONG_H - 1) x LONG_W steps, else wide and short
+    with probability WIDE_SHARE, else H and W from the pad ladder; then
+    1..MAX_BATCH images, the first of the whole padded size, the others of
+    real sizes drawn inside it."""
+    long_fits = max_steps >= (LONG_H[0] - 1) * LONG_W[0]
     while True:
-        if rng.random() < WIDE_SHARE:
+        if long_fits and rng.random() < LONG_SHARE:
+            bpp = int(rng.integers(1, 5))
+            h = int(rng.integers(LONG_H[0], LONG_H[1] + 1))
+            w = int(rng.integers(LONG_W[0], LONG_W[1] + 1))
+        elif rng.random() < WIDE_SHARE:
             bpp = 4
             h = int(rng.integers(WIDE_H[0], WIDE_H[1] + 1))
             w = int(rng.integers(WIDE_W[0], WIDE_W[1] + 1))

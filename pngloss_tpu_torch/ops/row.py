@@ -100,17 +100,18 @@ def row_attempt(s, bleed: int, orig, qprev, e0, e1, hist, ofreq, w_real):
 
 
 def row_retry_ref(s, bleed: int, orow, carry: Carry, ofreq, w_real,
-                  never_pass=None):
+                  never_pass=None, count=None):
     """Sequential plain version of ``row_retry``: ``strength_loop`` around
     ``row_attempt_ref``, one strength an attempt, one host sync per
-    attempt. One attempt (the 5 candidates at the strengths in a fixed
-    buffer) is captured once in a CUDA graph on a CUDA tensor, as in
+    attempt; ``count`` as for ``quantize_row``, over every attempt. One
+    attempt (the 5 candidates at the strengths in a fixed buffer) is
+    captured once in a CUDA graph on a CUDA tensor, as in
     ``image.image_rows_retry_ref``."""
     qprev, oprev, e0, e1, hist = carry
     s_now = s.clone()
     step = replayable(
         lambda: row_attempt_ref(s_now, bleed, orow, qprev, e0, e1, hist,
-                                ofreq, w_real), orow.device)
+                                ofreq, w_real, count), orow.device)
 
     def attempt(s_try):
         s_now.copy_(s_try)

@@ -18,6 +18,7 @@ from pngloss_tpu_torch.ops import (
     hist,
     image,
     ladder,
+    optimize,
     optimize_batch_auto,
     optimize_gpu,
     row,
@@ -430,10 +431,31 @@ def test_kernels_at_the_designs_edges(cuda, name):
                  image.image_rows_retry_ref(*image_cpu))
 
 
+def test_replayable_runs_its_first_call_eagerly(cuda):
+    """The plain versions' repeated step (ops/optimize.replayable) runs
+    eagerly on its first call, so a step run once (row 0 of a 4096-px photo
+    that passes at once, one row of phase 14's cuts) pays no capture, which
+    costs more than the eager call at full width; from the second call it
+    replays one capture, with the same values."""
+    x = torch.arange(8, dtype=torch.int32, device=cuda)
+    seen = []
+
+    def step():
+        seen.append(torch.cuda.is_current_stream_capturing())
+        return x * 2 + 1
+
+    run = optimize.replayable(step, cuda)
+    outs = [run().clone() for _ in range(4)]
+    assert seen == [False, True]
+    for out in outs:
+        _assert_same([out], [x * 2 + 1])
+
+
 def test_plain_versions_count_candidates_alike_on_the_card(cuda):
     """The plain versions' band-candidate count (chip_smoke.py's operation
     bound) on the card, where the image version replays a CUDA graph after
-    a warm-up run, equals the count of their eager run on the CPU."""
+    its first eager calls, equals the count of their eager run on the
+    CPU."""
     name = "equal-channels-bpp4"
     (row_args, image_args), (row_cpu, image_cpu) = (
         edge_inputs(name, cuda), edge_inputs(name, "cpu"))
@@ -682,6 +704,24 @@ def test_ladder_size_on_the_card(cuda):
             k = image.ladder_size(b, bpp, cuda)
             assert k == ladder.pick_ladder(b, resident, sms)
             assert k == 1 or (b * k <= sms and resident[k] >= b)
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_ladders_keep_one_rung_to_an_sm(cuda, bpp):
+    """Both ladders claim more than half of an SM's shared memory a rung
+    (csrc/quantize.cuh, kRungClaim), so their occupancy queries count no
+    more clusters of k than the SMs hold k rungs one to an SM, at every bpp:
+    on an H100's 132 SMs 15 clusters of 8, 30 of 4, 66 of 2 and 132 of 1
+    (without the claim the image ladder counted 30 clusters of 8 at bpp
+    1), and 16 images get k = 4 from both."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for mod in (image, row):
+        resident = ladder.resident_clusters(mod.clusters, bpp, cuda)
+        assert resident[1] == sms
+        assert all(n * k <= sms for k, n in resident.items()), resident
+        if sms == 132:
+            assert resident == {8: 15, 4: 30, 2: 66, 1: 132}
+            assert mod.ladder_size(16, bpp, cuda) == 4
 
 
 @pytest.mark.parametrize("k", [1, 2, 4, 8])

@@ -20,19 +20,24 @@ JAX package with the C tool). Each batch is one seed and checks:
       row ladder at a cluster size drawn per batch from 1, 2, 4 and 8,
       against the sequential plain version, and its rounds against the
       plain ladder's), image,
-      image adaptive (with ok) and image retry (with attempts: the ladder
-      at the cluster size it picks, against the sequential plain version);
-      the image variants stop at each image's real height; the retry
-      variants and image adaptive with the test-only ``never_pass`` flag on
-      some low-strength images.
+      image adaptive (with ok) and image retry (with attempts: the image
+      ladder at a cluster size drawn per batch from 1, 2, 4 and 8, against
+      the sequential plain version, and its rounds against the plain
+      ladder's, at k = 1 the attempts); the image variants stop at each image's real height; the
+      retry variants and image adaptive with the test-only ``never_pass``
+      flag on some low-strength images. Buckets hold at most --max-steps
+      image-kernel channel steps; from 2000 on, some are long (2-3 rows of
+      2000-8192 px, the rows of users' photos and screenshots).
 
 Usage:
   python tools/fuzz_torch.py --device cpu --total 64 --max-px 8
   python tools/fuzz_torch.py --device cuda --duration 600 --out fuzz.jsonl
+  python tools/fuzz_torch.py --device cuda --duration 600 --max-steps 65536
   # one batch again: the same --seed (and options) with --total 1
 
 One JSONL record per case (an image of (a) or of the bucket of (b)): seed,
-case, check, kind, h, w, bpp, strength, bleed, mode, device, identical. On a
+case, check, kind, h, w, bpp, strength, bleed, mode, device, identical
+(kernel records also: bucket, never_pass, row_ladder_k, image_ladder_k). On a
 mismatch it also holds the first divergence (which output, and its row,
 column, channel and filter) and, with --out, the input saved as a PNG beside
 the JSONL. Exit code 0 if and only if every case was identical; 2 when
@@ -72,8 +77,8 @@ from pngloss_tpu_torch.ops.random_cases import (  # noqa: E402
 
 # images per batch through the entry points
 E2E_IMAGES = 8
-# the row ladder's cluster sizes, one drawn per kernel batch
-ROW_LADDER_KS = (1, 2, 4, 8)
+# the ladders' cluster sizes, one drawn per kernel batch for each ladder
+LADDER_KS = (1, 2, 4, 8)
 # named axes of each kernel output past the batch axis; "row" of the image
 # kernel's outputs counts from its first row, row 1
 AXES = {
@@ -93,6 +98,7 @@ AXES = {
     "f": ("row",),
     "ok": (),
     "attempts": (),
+    "rounds": (),
 }
 
 
@@ -177,11 +183,11 @@ def check_end_to_end(rng, seed: int, mode: str, device, bleed: int,
     return recs
 
 
-def kernel_outputs(bucket, bleed: int, device,
-                   k: int = 1) -> dict[str, tuple]:
+def kernel_outputs(bucket, bleed: int, device, k: int = 1,
+                   image_k: int = 1) -> dict[str, tuple]:
     """(b): every kernel and its plain version on the bucket's tensors on
-    the card, the row ladder at cluster size ``k``. Returns {kernel:
-    {output: (got, want) numpy arrays}}."""
+    the card, the row ladder at cluster size ``k`` and the image ladder at
+    ``image_k``. Returns {kernel: {output: (got, want) numpy arrays}}."""
     i32 = torch.int32
     rows = torch.as_tensor(bucket.rows, device=device)
     b, h, wb = rows.shape
@@ -227,10 +233,20 @@ def kernel_outputs(bucket, bleed: int, device,
                          h_real=hr),
         image.image_rows_ref(*args, adaptive=True, never_pass=never_pass,
                              h_real=hr))
-    add("image_retry", ("q", "f", "attempts"),
-        image.image_rows(*args, adaptive=True, retry=True,
-                         never_pass=never_pass, h_real=hr),
-        image.image_rows_retry_ref(*args, never_pass=never_pass, h_real=hr))
+    rounds = torch.zeros(b, dtype=i32, device=device)
+    got = image.image_rows(*args, adaptive=True, retry=True,
+                           never_pass=never_pass, h_real=hr, k=image_k,
+                           rounds=rounds)
+    want = image.image_rows_retry_ref(*args, never_pass=never_pass,
+                                      h_real=hr)
+    if image_k == 1:              # one strength a round: rounds = attempts
+        rounds_ref = want[2]
+    else:
+        rounds_ref = torch.zeros(b, dtype=i32, device=device)
+        image.image_rows_ladder_ref(*args, k=image_k, never_pass=never_pass,
+                                    h_real=hr, rounds=rounds_ref)
+    add("image_retry", ("q", "f", "attempts", "rounds"), (*got, rounds),
+        (*want, rounds_ref))
     return pairs
 
 
@@ -257,8 +273,9 @@ def check_kernels(rng, seed: int, device, bleed: int, max_steps: int,
     """(b) on one random bucket. Returns one record per image."""
     bucket = random_bucket(rng, max_steps=max_steps,
                            max_strength=max_strength)
-    rungs = int(rng.choice(ROW_LADDER_KS))
-    pairs = kernel_outputs(bucket, bleed, device, rungs)
+    rungs = int(rng.choice(LADDER_KS))
+    image_rungs = int(rng.choice(LADDER_KS))
+    pairs = kernel_outputs(bucket, bleed, device, rungs, image_rungs)
     h_pad, w_pad = bucket.shape
     recs = []
     for k, kind in enumerate(bucket.kinds):
@@ -270,7 +287,8 @@ def check_kernels(rng, seed: int, device, bleed: int, max_steps: int,
                "mode": "kernels", "device": str(device),
                "bucket": [h_pad, w_pad],
                "never_pass": int(bucket.never_pass[k]),
-               "row_ladder_k": rungs, "identical": where is None}
+               "row_ladder_k": rungs, "image_ladder_k": image_rungs,
+               "identical": where is None}
         if where:
             plane = bucket.rows[k, :hr, :wr * bucket.bpp]
             png = codec.encode(pipeline.restore_colorspace(
@@ -300,13 +318,22 @@ def run_batch(seed: int, device, *, mode: str = "both",
 def summarize(recs: list[dict]) -> dict:
     e2e = [r for r in recs if r["check"] == "end_to_end"]
     ker = [r for r in recs if r["check"] == "kernels"]
+    batches = list({r["seed"]: r for r in ker}.values())
+
+    def drawn(key):
+        return {k: sum(r[key] == k for r in batches) for k in LADDER_KS}
+
     return {"cases": len(recs), "end_to_end": len(e2e),
-            "kernel_batches": len({r["seed"] for r in ker}),
+            "kernel_batches": len(batches),
             "kernel_cases": len(ker),
             "mismatches": sum(not r["identical"] for r in recs),
             "modes": sorted({r["mode"] for r in e2e}),
             "bpps": {"end_to_end": sorted({r["bpp"] for r in e2e}),
-                     "kernels": sorted({r["bpp"] for r in ker})}}
+                     "kernels": sorted({r["bpp"] for r in ker})},
+            "row_ladder_k": drawn("row_ladder_k"),
+            "image_ladder_k": drawn("image_ladder_k"),
+            "widest_bucket": max((r["bucket"][1] for r in batches),
+                                 default=0)}
 
 
 def main(argv=None) -> int:
@@ -323,6 +350,10 @@ def main(argv=None) -> int:
     ap.add_argument("--max-px", type=int, default=16,
                     help="largest side of an end-to-end image")
     ap.add_argument("--max-strength", type=int, default=255)
+    ap.add_argument("--max-steps", type=int, default=4096,
+                    help="largest kernel bucket, in image-kernel channel "
+                         "steps ((H-1) x W x bpp); from 2000 on some "
+                         "buckets are long rows of 2000-8192 px")
     ap.add_argument("--mode", default="both", choices=["cli", "embed", "both"])
     args = ap.parse_args(argv)
     if not args.total and not args.duration:
@@ -341,7 +372,8 @@ def main(argv=None) -> int:
                or (args.duration
                    and time.perf_counter() - t0 >= args.duration)):
         batch = run_batch(seed, device, mode=args.mode, max_px=args.max_px,
-                          max_strength=args.max_strength, out=args.out)
+                          max_strength=args.max_strength,
+                          max_steps=args.max_steps, out=args.out)
         if args.out:
             with open(args.out, "a") as fh:
                 fh.writelines(json.dumps(r) + "\n" for r in batch)
