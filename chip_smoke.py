@@ -118,14 +118,20 @@ Phases, each of which raises on failure:
      gray 512x512 images in embedding mode; every output decodes to its
      input's size and in embedding mode every row's filter is libpng's
      MSAD choice; wall time, stage seconds, MP/s, CUDA-event ms, bound and
-     share of each, and the phase's own duration (at most 150 s).
+     share of each, and the phase's own duration (at most 150 s);
+ 15. the benchmark's entry point: ``bench_torch.py --case bench --runs 1``
+     in a subprocess (at most BENCH_PHASE_S seconds) exits 0, its case
+     line counts launches of the three kernels of the main path, and its
+     last line is bench.py's record naming this card.
 
 Each of phases 5-14 sets the launch counters to 0 just before the path it
-drives and reads them just after; a kernel of that path that was not
+drives and reads them just after (phase 15's subprocess does so around its
+timed runs and reports them); a kernel of that path that was not
 launched fails the run.
 
 Prints its own duration, the card line and one JSON line of per-kernel
-results (and phase 14's numbers, under "users_sizes") before the last
+results (phase 14's numbers under "users_sizes", phase 15's record under
+"bench") before the last
 line, ``{"ok": true, "device": {...}}``: launches
 on the main path,
 max abs error against the plain version, the kernel's, the plain
@@ -271,6 +277,9 @@ USER_ROWS = {"photo": 2, "screenshot": 2}
 USERS_SEED = SEED + 14
 CARD_IMAGES = (132, 264)
 GRAY_IMAGES, GRAY_ROWS = 16, 8
+# phase 15: the seconds bench_torch.py's bench case may take, start-up
+# and its gates' plain runs on the CPU included
+BENCH_PHASE_S = 30
 
 
 def card_line() -> str:
@@ -279,6 +288,15 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (the compiler's build)."""
+    from pngloss_tpu_torch.ops import _build
+
+    return subprocess.run([_build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[-1]
 
 
 def cuda_ms(fn, reps: int = 1, warm: bool = True) -> float:
@@ -2039,25 +2057,35 @@ def run_fuzz(device, log) -> dict[str, int]:
     return counts
 
 
-def dispatch_corpus(rng) -> list[bytes]:
-    """Phase 13's ragged corpus: DISPATCH_N PNGs with sides of
+def with_kind(rgba: np.ndarray, k: int) -> np.ndarray:
+    """``rgba`` made, in place, the k-th of gray, gray+alpha, RGB and RGBA
+    in turn (working bpp 1-4); the alpha pattern is fully and partly
+    transparent pixels."""
+    if k % 4 < 2:                                   # gray, gray+alpha
+        rgba[..., 0] = rgba[..., 2] = rgba[..., 1]
+    if k % 2:                                       # gray+alpha, RGBA
+        rgba[::3, ::2, 3] = 0
+        rgba[1::3, 1::2, 3] = 128
+    return rgba
+
+
+def dispatch_images(rng) -> list[np.ndarray]:
+    """Phase 13's ragged corpus as RGBA images: DISPATCH_N with sides of
     DISPATCH_SIDES px, in turn gray, gray+alpha, RGB and RGBA (bpp 1-4),
     then four 512x512 RGB."""
-    from pngloss_tpu_torch.codec import encode
-
-    pngs = []
+    images = []
     for k in range(DISPATCH_N):
         h, w = (int(v) for v in rng.integers(DISPATCH_SIDES[0],
                                              DISPATCH_SIDES[1] + 1, 2))
-        rgba = synthetic_rgb(rng, 1, h, w)[0]
-        if k % 4 < 2:                               # gray, gray+alpha
-            rgba[..., 0] = rgba[..., 2] = rgba[..., 1]
-        if k % 2:                                   # gray+alpha, RGBA
-            rgba[::3, ::2, 3] = 0
-            rgba[1::3, 1::2, 3] = 128
-        pngs.append(encode(rgba, row_filters=None))
-    return pngs + [encode(im, row_filters=None)
-                   for im in synthetic_rgb(rng, 4, SIDE, SIDE)]
+        images.append(with_kind(synthetic_rgb(rng, 1, h, w)[0], k))
+    return images + list(synthetic_rgb(rng, 4, SIDE, SIDE))
+
+
+def dispatch_corpus(rng) -> list[bytes]:
+    """Phase 13's ragged corpus (``dispatch_images``) as PNGs."""
+    from pngloss_tpu_torch.codec import encode
+
+    return [encode(im, row_filters=None) for im in dispatch_images(rng)]
 
 
 PARENT_DISPATCH = r"""
@@ -2948,6 +2976,38 @@ def run_users(device, pngs16, want16, card: str, log) -> dict:
     return out
 
 
+def run_bench_phase(card: str, log) -> dict:
+    """Phase 15: ``bench_torch.py --case bench --runs 1`` in a subprocess,
+    killed after BENCH_PHASE_S seconds. It must exit 0, its case line must
+    count launches of CLI_KERNELS, and its last line must be bench.py's
+    record naming this card. Returns that record."""
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "bench_torch.py"), "--case",
+         "bench", "--runs", "1"], cwd=ROOT, capture_output=True, text=True,
+        timeout=BENCH_PHASE_S)
+    if proc.returncode:
+        raise AssertionError(f"[15] bench_torch.py exited {proc.returncode}:"
+                             f"\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    record, case = json.loads(lines[-1]), json.loads(lines[-2])
+    if (record.get("metric") != "1mp_images_per_sec_per_chip"
+            or record.get("device") != card):
+        raise AssertionError(f"[15] bench_torch.py's last line is not "
+                             f"bench.py's record for {card}: {lines[-1]}")
+    for key in ("device_launches", "launches"):
+        missing = [k for k in CLI_KERNELS if not case[key].get(k)]
+        if missing:
+            raise AssertionError(f"[15] bench_torch.py's {key}: {missing} "
+                                 f"not launched: {case[key]}")
+    log(f"  bench_torch.py --case bench --runs 1 on {card}: "
+        f"{record['value']:.3f} img(1MP)/s (device rate, "
+        f"{case['device_ms']['median']:.3f} ms for {case['device_images']} "
+        f"images), stream {record['stream_mp_s']:.3f} MP/s "
+        f"({case['median_s']:.3f} s for {case['images']} images); launches "
+        f"{case['device_launches']} and {case['launches']}")
+    return record
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU.")
@@ -2968,11 +3028,8 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda", 0)
     card = card_line()
-    nvcc = subprocess.run([_build.nvcc_path(), "--version"],
-                          capture_output=True, text=True, timeout=60,
-                          check=True).stdout.strip().splitlines()[-1]
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}; {nvcc}")
+        f"{torch.version.cuda}; {nvcc_version()}")
 
     t0 = time.perf_counter()
     _build.library()
@@ -3047,6 +3104,11 @@ def main(argv=None) -> int:
     users["seconds"] = time.perf_counter() - t0
     log(f"  ({users['seconds']:.1f} s)")
 
+    log("[15] bench_torch.py")
+    t0 = time.perf_counter()
+    bench = run_bench_phase(card, log)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
     kernels = []
     log(f"[3b] kernels on the main path (SM clock now, max: {sm_clocks()})")
     for name, src, rep in KERNELS:
@@ -3074,8 +3136,8 @@ def main(argv=None) -> int:
     log(f"[end] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
         f"({'with' if args.parent else 'without'} --parent)")
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels, "users_sizes": users}),
-          flush=True)
+    print(json.dumps({"kernels": kernels, "users_sizes": users,
+                      "bench": bench}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

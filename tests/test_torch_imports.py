@@ -1,8 +1,9 @@
 """The port imports nothing of the JAX package: no module of
-``pngloss_tpu_torch`` and no line of ``chip_smoke.py`` or
-``tools/fuzz_torch.py`` imports ``pngloss_tpu`` or ``jax`` (an AST scan,
-one case per file), the port runs
-in a process that refuses both (a ``sys.meta_path`` finder), and each of
+``pngloss_tpu_torch`` and no line of ``chip_smoke.py``, ``bench_torch.py``
+or ``tools/fuzz_torch.py`` imports ``pngloss_tpu`` or ``jax`` (an AST
+scan, one case per file), the port runs
+in a process that refuses both (a ``sys.meta_path`` finder; there
+``bench_torch.py`` imports and builds its bench batch too), and each of
 the port's copies of a JAX-free host module equals its original on small
 inputs."""
 
@@ -27,7 +28,8 @@ REFUSED = ("pngloss_tpu", "jax", "jaxlib")
 PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in glob.glob(
         os.path.join(REPO, "pngloss_tpu_torch", "**", "*.py"),
-        recursive=True)) + ["chip_smoke.py", "tools/fuzz_torch.py"]
+        recursive=True)) + ["bench_torch.py", "chip_smoke.py",
+                            "tools/fuzz_torch.py"]
 
 
 def _imported(path: str) -> list[tuple[int, str]]:
@@ -52,6 +54,7 @@ def test_file_imports_no_jax_package(path):
 
 def test_scan_covers_the_port():
     assert "chip_smoke.py" in PORT_FILES
+    assert "bench_torch.py" in PORT_FILES
     assert "tools/fuzz_torch.py" in PORT_FILES
     for module in ("pngloss_tpu_torch/codec/native.py",
                    "pngloss_tpu_torch/reference.py",
@@ -101,6 +104,9 @@ req = urllib.request.Request(
 assert urllib.request.urlopen(req, timeout=300).status == 200
 srv.shutdown()
 srv.server_close()
+import bench_torch
+batch, bpp, mp = bench_torch.bench_batch(bench_torch.bench_base())
+assert batch.shape == (25, 512, 1536) and bpp == 3
 bad = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not bad, bad
 print("modules", len(names))
