@@ -22,7 +22,7 @@ import os
 import sys
 import tempfile
 
-from pngloss_tpu_torch import codec
+from pngloss_tpu_torch import codec, tracing
 from pngloss_tpu_torch.version import __version__
 
 # pngloss_error (rwpng.h:23-38) — enum values double as process exit codes
@@ -186,7 +186,8 @@ def _compress_one(
     from pngloss_tpu_torch import pipeline
 
     try:
-        img = codec.decode(data, strip=opts.strip)
+        with tracing.stage("host_decode"):
+            img = codec.decode(data, strip=opts.strip)
     except codec.PngDecodeError as e:
         _report_decode_error(e, verbose_name, opts.using_stdin)
         return None, None, getattr(e, "exit_code", LIBPNG_FATAL_ERROR), None
@@ -205,10 +206,11 @@ def _compress_one(
 
     max_size = len(data) - 1 if opts.skip_if_larger else 0
     try:
-        out = codec.encode(
-            q, row_filters=filters, gamma=img.gamma,
-            color_transform=img.color_transform, chunks=img.chunks,
-            maximum_file_size=max_size)
+        with tracing.stage("host_encode"):
+            out = codec.encode(
+                q, row_filters=filters, gamma=img.gamma,
+                color_transform=img.color_transform, chunks=img.chunks,
+                maximum_file_size=max_size)
     except codec.TooLargeFile as e:
         if opts.verbose:
             kb = (max_size + 500) // 1000
@@ -357,6 +359,13 @@ def run(argv: list[str], stdin: io.RawIOBase | None = None,
         print(USAGE, file=sys.stderr, end="")
         return MISSING_ARGUMENT
 
+    # a trace of the call where PNGLOSS_PROFILE_DIR is set
+    with tracing.device_trace(), tracing.request("cli.run"):
+        return _run_files(opts, stdin, stdout, device, mesh)
+
+
+def _run_files(opts, stdin, stdout, device, mesh) -> int:
+    """The compressing part of ``run``: every file of ``opts``."""
     mesh = _resolve(device, mesh)
     if mesh is None:
         return NO_CUDA
@@ -387,11 +396,12 @@ def run(argv: list[str], stdin: io.RawIOBase | None = None,
             if opts.verbose:
                 print(f"{display}:", file=sys.stderr)
             try:
-                if opts.using_stdin:
-                    data = stdin.read()
-                else:
-                    with open(filename, "rb") as fh:
-                        data = fh.read()
+                with tracing.stage("host_read"):
+                    if opts.using_stdin:
+                        data = stdin.read()
+                    else:
+                        with open(filename, "rb") as fh:
+                            data = fh.read()
             except OSError:
                 if not opts.using_stdin:
                     _report_cannot_open(filename)
@@ -405,12 +415,14 @@ def run(argv: list[str], stdin: io.RawIOBase | None = None,
                         if opts.verbose:
                             print("  writing compressed image to stdout",
                                   file=sys.stderr)
-                        stdout.write(out)
+                        with tracing.stage("host_write"):
+                            stdout.write(out)
                     else:
                         if opts.verbose:
                             print(f"  writing compressed image as {outname}",
                                   file=sys.stderr)
-                        retval = _write_atomic(outname, out)
+                        with tracing.stage("host_write"):
+                            retval = _write_atomic(outname, out)
                     if retval == SUCCESS:
                         _print_wrote(opts, out, data, img)
                 elif fallback is not None:
@@ -460,14 +472,15 @@ def _run_batched(opts, *, mesh) -> int:
             retval = NOT_OVERWRITING_ERROR
         if retval == SUCCESS:
             try:
-                with open(filename, "rb") as fh:
+                with tracing.stage("host_read"), open(filename, "rb") as fh:
                     data = fh.read()
             except OSError:
                 _report_cannot_open(filename)
                 retval = READ_ERROR
         if retval == SUCCESS:
             try:
-                img = codec.decode(data, strip=opts.strip)
+                with tracing.stage("host_decode"):
+                    img = codec.decode(data, strip=opts.strip)
             except codec.PngDecodeError as e:
                 _report_decode_error(e, filename)
                 retval = getattr(e, "exit_code", LIBPNG_FATAL_ERROR)
@@ -475,10 +488,11 @@ def _run_batched(opts, *, mesh) -> int:
 
     ok = [e for e in entries if e[2] == SUCCESS]
     works, bpps = [], []
-    for e in ok:
-        work, bpp = pipeline.reduce_colorspace(e[4].rgba)
-        works.append(work)
-        bpps.append(bpp)
+    with tracing.stage("host_reduce"):
+        for e in ok:
+            work, bpp = pipeline.reduce_colorspace(e[4].rgba)
+            works.append(work)
+            bpps.append(bpp)
     pending = pipeline.dispatch_buckets(
         works, bpps, opts.strength, opts.bleed_divider, mesh=mesh)
     qs, fs = [None] * len(ok), [None] * len(ok)
@@ -491,10 +505,11 @@ def _run_batched(opts, *, mesh) -> int:
                   f"{len(p.idxs)} image(s) at {wb // p.bpp}x{h}x{p.bpp}bpp",
                   file=sys.stderr)
         qb, fb = pipeline.collect_bucket(p)
-        for k, i in enumerate(p.idxs):
-            qs[i] = pipeline.restore_colorspace(
-                qb[k], p.bpp, ok[i][4].rgba.shape[1])
-            fs[i] = fb[k]
+        with tracing.stage("host_restore"):
+            for k, i in enumerate(p.idxs):
+                qs[i] = pipeline.restore_colorspace(
+                    qb[k], p.bpp, ok[i][4].rgba.shape[1])
+                fs[i] = fb[k]
 
     error_count = skipped_count = 0
     latest_error = SUCCESS
@@ -509,10 +524,11 @@ def _run_batched(opts, *, mesh) -> int:
             print(f"  used {n} unique symbols", file=sys.stderr)
         max_size = len(data) - 1 if opts.skip_if_larger else 0
         try:
-            out = codec.encode(
-                qs[j], row_filters=fs[j], gamma=img.gamma,
-                color_transform=img.color_transform, chunks=img.chunks,
-                maximum_file_size=max_size)
+            with tracing.stage("host_encode"):
+                out = codec.encode(
+                    qs[j], row_filters=fs[j], gamma=img.gamma,
+                    color_transform=img.color_transform, chunks=img.chunks,
+                    maximum_file_size=max_size)
         except codec.TooLargeFile:
             if opts.verbose:
                 kb = (max_size + 500) // 1000
@@ -521,7 +537,8 @@ def _run_batched(opts, *, mesh) -> int:
             continue
         if opts.verbose:
             print(f"  writing compressed image as {outname}", file=sys.stderr)
-        e[2] = _write_atomic(outname, out)
+        with tracing.stage("host_write"):
+            e[2] = _write_atomic(outname, out)
         if e[2] == SUCCESS:
             _print_wrote(opts, out, data, img)
 

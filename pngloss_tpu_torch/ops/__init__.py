@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pngloss_tpu_torch import tracing
 from pngloss_tpu_torch.ops.optimize_gpu import optimize_batch, to_device
 
 
@@ -46,9 +47,6 @@ def optimize_batch_auto(rows, strength, bleed: int = 2, *, bpp: int, device,
     the current stream and returns without waiting for the card.
     """
     device = resolve_device(device)
-    rows = to_device(rows, device)
-    if rows.dtype != torch.uint8 or rows.dim() != 3:
-        raise ValueError("rows must be a (B, H, W*bpp) uint8 array")
 
     def as_int32(v):
         if v is None:
@@ -56,9 +54,15 @@ def optimize_batch_auto(rows, strength, bleed: int = 2, *, bpp: int, device,
         return to_device(v if torch.is_tensor(v) else np.asarray(v, np.int32),
                          device).to(torch.int32)
 
-    return optimize_batch(rows, as_int32(strength), int(bleed), bpp=bpp,
+    with tracing.stage("ops.upload"):
+        rows = to_device(rows, device)
+        if rows.dtype != torch.uint8 or rows.dim() != 3:
+            raise ValueError("rows must be a (B, H, W*bpp) uint8 array")
+        strength, w_real, h_real = (as_int32(v)
+                                    for v in (strength, w_real, h_real))
+    return optimize_batch(rows, strength, int(bleed), bpp=bpp,
                           use_row_filters=use_row_filters,
-                          w_real=as_int32(w_real), h_real=as_int32(h_real))
+                          w_real=w_real, h_real=h_real)
 
 
 __all__ = ["CudaUnavailableError", "optimize_batch", "optimize_batch_auto",

@@ -39,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pngloss_tpu_torch import tracing
 from pngloss_tpu_torch.convert import Carry
 from pngloss_tpu_torch.ops import hist as hist_op
 from pngloss_tpu_torch.ops import image as image_op
@@ -139,22 +140,38 @@ def optimize_rows(s, bleed: int, orig, ofreq, w_real, carry=None):
 
 def _optimize_chunk(rows, strength, bleed: int, bpp: int, w_real, h_real,
                     use_row_filters: bool):
+    """One chunk through the three steps, each a span of its own. Inside a
+    ``tracing.device_counts`` block, embedding mode also reports the
+    ladder's real rows, attempts and rounds (``ladder.*``) of each image
+    as device tensors."""
     b, h, wb = rows.shape
     w = wb // bpp
-    ofreq = hist_op.original_frequencies(rows, bpp, w_real, h_real)
-    orig0 = rows[:, 0].reshape(b, w, bpp).to(torch.int32)
-    c0, f0 = row0(strength, bleed, orig0, ofreq, w_real)
-    q = torch.empty((b, h, w, bpp), dtype=torch.uint8, device=rows.device)
-    f = torch.empty((b, h), dtype=torch.int8, device=rows.device)
-    q[:, 0] = c0.qprev.to(torch.uint8)
-    f[:, 0] = f0.to(torch.int8)
+    with tracing.stage("ops.hist"):
+        ofreq = hist_op.original_frequencies(rows, bpp, w_real, h_real)
+    with tracing.stage("ops.row0"):
+        orig0 = rows[:, 0].reshape(b, w, bpp).to(torch.int32)
+        c0, f0 = row0(strength, bleed, orig0, ofreq, w_real)
+        q = torch.empty((b, h, w, bpp), dtype=torch.uint8,
+                        device=rows.device)
+        f = torch.empty((b, h), dtype=torch.int8, device=rows.device)
+        q[:, 0] = c0.qprev.to(torch.uint8)
+        f[:, 0] = f0.to(torch.int8)
     if h > 1:
-        embed = not use_row_filters
-        qrows, filt, *_ = image_op.image_rows(
-            strength, bleed, w_real, ofreq, rows, c0.qprev, c0.e0, c0.e1,
-            c0.hist, adaptive=embed, retry=embed, h_real=h_real)
-        q[:, 1:] = qrows.to(torch.uint8)
-        f[:, 1:] = filt.to(torch.int8)
+        with tracing.stage("ops.image"):
+            embed = not use_row_filters
+            tally = tracing.device_tally() if embed else None
+            rounds = (None if tally is None else
+                      torch.empty(b, dtype=torch.int32, device=rows.device))
+            qrows, filt, *rest = image_op.image_rows(
+                strength, bleed, w_real, ofreq, rows, c0.qprev, c0.e0,
+                c0.e1, c0.hist, adaptive=embed, retry=embed, h_real=h_real,
+                rounds=rounds)
+            q[:, 1:] = qrows.to(torch.uint8)
+            f[:, 1:] = filt.to(torch.int8)
+            if tally is not None:
+                tally += [("ladder.rows", (h_real - 1).clamp(min=0)),
+                          ("ladder.attempts", rest[0]),
+                          ("ladder.rounds", rounds)]
     return q.view(b, h, wb), f
 
 
@@ -178,10 +195,11 @@ def optimize_batch(rows, strength, bleed: int = 2, *, bpp: int,
         t = to_device(v, dev).to(torch.int32)
         return t.expand(b).contiguous() if t.dim() == 0 else t.contiguous()
 
-    strength = per_image(strength, 0)
-    w_real = per_image(w_real, w)
-    h_real = per_image(h_real, h)
-    chunk = max_batch(h, w, bpp, dev)
+    with tracing.stage("ops.prepare"):
+        strength = per_image(strength, 0)
+        w_real = per_image(w_real, w)
+        h_real = per_image(h_real, h)
+        chunk = max_batch(h, w, bpp, dev)
     if b <= chunk:
         return _optimize_chunk(rows, strength, int(bleed), bpp, w_real,
                                h_real, use_row_filters)

@@ -33,6 +33,7 @@ import threading
 import numpy as np
 import torch
 
+from pngloss_tpu_torch import tracing
 from pngloss_tpu_torch.ops import (
     CudaUnavailableError,
     optimize_batch_auto,
@@ -157,8 +158,9 @@ def optimize_batch_sharded(rows, strength, bleed: int = 2, *, bpp: int,
     if len(devices) == 1:
         run_device(devices[0])
     else:
+        run = tracing.carry(run_device)
         with _futures.ThreadPoolExecutor(len(devices)) as pool:
-            for fut in [pool.submit(run_device, d) for d in devices]:
+            for fut in [pool.submit(run, d) for d in devices]:
                 fut.result()
     qs = [q for q, _ in out]
     fs = [f for _, f in out]

@@ -129,6 +129,9 @@ class _PendingBucket:
     dims: list[tuple[int, int]]  # per-image real (H, W*bpp) to slice out
     # CUDA events, one per CUDA shard, recorded after its copies
     done: list = dataclasses.field(default_factory=list)
+    # while tracing: (counter name, host (B,) tensor) copied back before
+    # the events, counted when the bucket lands
+    counts: list = dataclasses.field(default_factory=list)
 
 
 def _gather_to_host(qs, fs, slot=None):
@@ -156,6 +159,22 @@ def _gather_to_host(qs, fs, slot=None):
                 done.append(event)
         lo = hi
     return qh, fh, done
+
+
+def _counts_to_host(tally, slot):
+    """The device counters of a bucket (``tracing.device_counts``) as
+    (name, host tensor), each CUDA one copied into pinned memory without
+    blocking on its device's stream for the bucket ``slot``, before
+    ``_gather_to_host`` records that stream's events."""
+    out = []
+    for name, t in tally or ():
+        if t.device.type == "cuda":
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            with bucket_stream(t.device, slot):
+                h.copy_(t, non_blocking=True)
+            t = h
+        out.append((name, t))
+    return out
 
 
 def dispatch_order(keys):
@@ -201,21 +220,25 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
         h_pad, wb_pad, bpp = key
         idxs = buckets[key]
         dims = [works[i].shape for i in idxs]
-        batch = np.zeros((len(idxs), h_pad, wb_pad), np.uint8)
-        for k, i in enumerate(idxs):
-            hh, ww = works[i].shape
-            batch[k, :hh, :ww] = works[i]
-        w_real = np.asarray([d[1] // bpp for d in dims], np.int32)
-        h_real = np.asarray([d[0] for d in dims], np.int32)
-        s = (np.asarray([strength[i] for i in idxs], np.int32) if per_image
-             else strength)
-        with tracing.stage(f"device_dispatch_{h_pad}x{wb_pad // bpp}x{bpp}"):
+        with tracing.stage("host_pack"):
+            batch = np.zeros((len(idxs), h_pad, wb_pad), np.uint8)
+            for k, i in enumerate(idxs):
+                hh, ww = works[i].shape
+                batch[k, :hh, :ww] = works[i]
+            w_real = np.asarray([d[1] // bpp for d in dims], np.int32)
+            h_real = np.asarray([d[0] for d in dims], np.int32)
+            s = (np.asarray([strength[i] for i in idxs], np.int32)
+                 if per_image else strength)
+        with tracing.stage(f"device_dispatch_{h_pad}x{wb_pad // bpp}x{bpp}"), \
+                tracing.device_counts() as tally:
             qs, fs, _ = optimize_batch_sharded(
                 batch, s, bleed, bpp=bpp, use_row_filters=use_row_filters,
                 mesh=mesh, fetch=False, w_real=w_real, h_real=h_real,
                 slot=slot)
-            qh, fh, done = _gather_to_host(qs, fs, slot)
-        pending[key] = _PendingBucket(idxs, bpp, qh, fh, dims, done)
+            with tracing.stage("host_gather"):
+                counts = _counts_to_host(tally, slot)
+                qh, fh, done = _gather_to_host(qs, fs, slot)
+        pending[key] = _PendingBucket(idxs, bpp, qh, fh, dims, done, counts)
     return [pending[key] for key in buckets]
 
 
@@ -242,7 +265,9 @@ def landed(pending):
 
 def _bucket_arrays(p: _PendingBucket):
     """A landed bucket's (qs, fs): per-image lists sliced to each image's
-    real (H, W*bpp)."""
+    real (H, W*bpp). Its device counters are counted here."""
+    for name, t in p.counts:
+        tracing.count(name, int(t.sum()))
     q = p.q.numpy()
     f = p.f.numpy()
     qs = [q[k, :h, :wb] for k, (h, wb) in enumerate(p.dims)]
@@ -271,20 +296,24 @@ def optimize_rgba_batch(rgbas, strength=19, bleed: int = 2, *,
         strength = list(strength)
         if len(strength) != len(rgbas):
             raise ValueError("one strength per image expected")
-    works, bpps = [], []
-    for rgba in rgbas:
-        work, bpp = reduce_colorspace(rgba)
-        works.append(work)
-        bpps.append(bpp)
-    q_out: list = [None] * len(rgbas)
-    f_out: list = [None] * len(rgbas)
-    for p in dispatch_buckets(works, bpps, strength, bleed,
-                              use_row_filters=use_row_filters,
-                              device=device, mesh=mesh):
-        qb, fb = collect_bucket(p)
-        for j, i in enumerate(p.idxs):
-            q_out[i] = restore_colorspace(qb[j], p.bpp, rgbas[i].shape[1])
-            f_out[i] = np.ascontiguousarray(fb[j])
+    with tracing.request("pipeline.optimize_rgba_batch"):
+        with tracing.stage("host_reduce"):
+            works, bpps = [], []
+            for rgba in rgbas:
+                work, bpp = reduce_colorspace(rgba)
+                works.append(work)
+                bpps.append(bpp)
+        q_out: list = [None] * len(rgbas)
+        f_out: list = [None] * len(rgbas)
+        for p in dispatch_buckets(works, bpps, strength, bleed,
+                                  use_row_filters=use_row_filters,
+                                  device=device, mesh=mesh):
+            qb, fb = collect_bucket(p)
+            with tracing.stage("host_restore"):
+                for j, i in enumerate(p.idxs):
+                    q_out[i] = restore_colorspace(qb[j], p.bpp,
+                                                  rgbas[i].shape[1])
+                    f_out[i] = np.ascontiguousarray(fb[j])
     return q_out, f_out
 
 
@@ -344,8 +373,9 @@ def optimize_for_average_filter(rgba: np.ndarray, strength: int = 19, *,
     """The embedding API (optimizeForAverageFilter, pngloss_image.c:29):
     fixed bleed=2, no row-filter output, every row must self-consistently
     pass libpng's adaptive heuristic. Returns the quantized RGBA array."""
-    q, _ = optimize_rgba(rgba, strength, bleed=2, use_row_filters=False,
-                         device=device)
+    with tracing.request("pipeline.optimize_for_average_filter"):
+        q, _ = optimize_rgba(rgba, strength, bleed=2, use_row_filters=False,
+                             device=device)
     return q
 
 
@@ -412,7 +442,12 @@ def compress_many(files, strength=19, bleed: int = 2, *,
     release the GIL, so the pools scale with real cores.
     strength: one int, or one per file.
     """
-    mesh = resolve_mesh(device, mesh)
+    with tracing.request("pipeline.compress_many"):
+        return _compress_many(files, strength, bleed, strip, skip_if_larger,
+                              resolve_mesh(device, mesh))
+
+
+def _compress_many(files, strength, bleed, strip, skip_if_larger, mesh):
     workers = os.cpu_count() or 1
     results = [CompressResult() for _ in files]
     per_image_strength = not np.isscalar(strength)
@@ -424,7 +459,8 @@ def compress_many(files, strength=19, bleed: int = 2, *,
     def _decode(data: bytes):
         with tracing.stage("host_decode"):
             img = codec.decode(data, strip=strip)
-        return img, reduce_colorspace(img.rgba)
+        with tracing.stage("host_reduce"):
+            return img, reduce_colorspace(img.rgba)
 
     # dedup identical inputs (the suite's same-file-many-strengths
     # pattern): decode + colorspace-reduce each distinct byte string once
@@ -433,8 +469,9 @@ def compress_many(files, strength=19, bleed: int = 2, *,
         distinct.setdefault(d, []).append(i)
     work_items = [(idxs, files[idxs[0]]) for idxs in distinct.values()]
     if workers > 1 and len(work_items) > 1:
+        decode = tracing.carry(lambda it: _try(_decode, it[1]))
         with _futures.ThreadPoolExecutor(workers) as pool:
-            uniq = list(pool.map(lambda it: _try(_decode, it[1]), work_items))
+            uniq = list(pool.map(decode, work_items))
     else:
         uniq = [_try(_decode, it[1]) for it in work_items]
     decoded: list = [None] * len(files)
@@ -463,7 +500,8 @@ def compress_many(files, strength=19, bleed: int = 2, *,
     def _encode(j: int, q_work: np.ndarray, f_row: np.ndarray) -> None:
         i = ok_idx[j]
         img = decoded[i][0][0]
-        rgba = restore_colorspace(q_work, bpps[j], widths[j])
+        with tracing.stage("host_restore"):
+            rgba = restore_colorspace(q_work, bpps[j], widths[j])
         max_size = results[i].input_size - 1 if skip_if_larger else 0
         try:
             with tracing.stage("host_encode"):
@@ -479,11 +517,12 @@ def compress_many(files, strength=19, bleed: int = 2, *,
         results[i].metadata_size = sum(len(c.data) + 12 for c in img.chunks)
 
     # drain: as each bucket's copy lands, its encodes run on the pool
+    encode = tracing.carry(_encode)
     with _futures.ThreadPoolExecutor(workers) as pool:
         futs = []
         for p in landed(pending):
             qb, fb = _bucket_arrays(p)
-            futs += [pool.submit(_encode, j, qb[k], fb[k])
+            futs += [pool.submit(encode, j, qb[k], fb[k])
                      for k, j in enumerate(p.idxs)]
         for fut in futs:
             fut.result()
