@@ -2870,7 +2870,7 @@ def full_card(device, pngs16, want16, card: str, log) -> dict:
                     bound={k: dict(ms=b, by=by, share=b / ms[k])
                            for k, (b, by) in bound.items()})
         rec[n] = run1
-        workers = os.cpu_count() or 1
+        workers = pipeline.host_workers()
         log(f"  {n} x {SIDE}x{SIDE} RGB on {card}: compress_many "
             f"{run1['wall']:.3f} s ({run1['mp_s']:.3f} MP/s); stages (s, "
             f"summed over threads) {json.dumps(stages)}; launches "

@@ -456,92 +456,114 @@ def _verbose_summary(opts, error_count, skipped_count, file_count):
 
 
 def _run_batched(opts, *, mesh) -> int:
-    """Multi-file batched mode: overwrite guards and reads up front, one
-    optimizer call per shape bucket, then per-file encode+write with the
-    same verbose output and exit codes as the sequential path."""
+    """Multi-file batched mode, with the same verbose output and exit codes
+    as the sequential path: overwrite guards up front; each file read,
+    decoded and reduced on the host pool (``pipeline.HostPool``), its
+    errors reported in file order; one optimizer call per shape bucket;
+    each bucket's files restored and encoded on the pool as the bucket
+    lands, and written with their verbose lines in file order, each once
+    its own encode is done."""
     from pngloss_tpu_torch import pipeline
+
+    def load(filename):
+        with tracing.stage("host_read"), open(filename, "rb") as fh:
+            data = fh.read()
+        with tracing.stage("host_decode"):
+            img = codec.decode(data, strip=opts.strip)
+        with tracing.stage("host_reduce"):
+            return data, img, pipeline.reduce_colorspace(img.rgba)
+
+    def encode(j, q_work, f_row):
+        """(PNG bytes, or None where it would not be smaller than its
+        input under --skip-if-larger; the symbol count for -v)."""
+        data, img = ok[j][3:]
+        with tracing.stage("host_restore"):
+            q = pipeline.restore_colorspace(q_work, bpps[j],
+                                            img.rgba.shape[1])
+        n = (pipeline.unique_symbol_count(q, f_row, bpp=bpps[j])
+             if opts.verbose else None)
+        try:
+            with tracing.stage("host_encode"):
+                return codec.encode(
+                    q, row_filters=f_row, gamma=img.gamma,
+                    color_transform=img.color_transform, chunks=img.chunks,
+                    maximum_file_size=len(data) - 1
+                    if opts.skip_if_larger else 0), n
+        except codec.TooLargeFile:
+            return None, n
 
     entries = []  # [filename, outname, retval, bytes|None, DecodedImage|None]
     for filename in opts.files:
         outname = opts.output_file_path or add_filename_extension(
             filename, opts.extension)
-        retval = SUCCESS
-        data = img = None
-        if not opts.force and os.path.exists(outname):
-            print(f"  error: '{outname}' exists; not overwriting", file=sys.stderr)
-            retval = NOT_OVERWRITING_ERROR
-        if retval == SUCCESS:
-            try:
-                with tracing.stage("host_read"), open(filename, "rb") as fh:
-                    data = fh.read()
-            except OSError:
-                _report_cannot_open(filename)
-                retval = READ_ERROR
-        if retval == SUCCESS:
-            try:
-                with tracing.stage("host_decode"):
-                    img = codec.decode(data, strip=opts.strip)
-            except codec.PngDecodeError as e:
-                _report_decode_error(e, filename)
-                retval = getattr(e, "exit_code", LIBPNG_FATAL_ERROR)
-        entries.append([filename, outname, retval, data, img])
+        guarded = not opts.force and os.path.exists(outname)
+        entries.append([filename, outname,
+                        NOT_OVERWRITING_ERROR if guarded else SUCCESS,
+                        None, None])
 
-    ok = [e for e in entries if e[2] == SUCCESS]
-    works, bpps = [], []
-    with tracing.stage("host_reduce"):
-        for e in ok:
-            work, bpp = pipeline.reduce_colorspace(e[4].rgba)
-            works.append(work)
-            bpps.append(bpp)
-    pending = pipeline.dispatch_buckets(
-        works, bpps, opts.strength, opts.bleed_divider, mesh=mesh)
-    qs, fs = [None] * len(ok), [None] * len(ok)
-    for pi, p in enumerate(pending):
+    with pipeline.HostPool() as pool:
+        loaded = iter(pool.map(load, [e[0] for e in entries
+                                      if e[2] == SUCCESS]))
+        ok, works, bpps = [], [], []
+        for e in entries:
+            if e[2] == NOT_OVERWRITING_ERROR:
+                print(f"  error: '{e[1]}' exists; not overwriting",
+                      file=sys.stderr)
+                continue
+            payload, err = next(loaded)
+            if err is None:
+                e[3], e[4], (work, bpp) = payload
+                ok.append(e)
+                works.append(work)
+                bpps.append(bpp)
+            elif isinstance(err, OSError):
+                _report_cannot_open(e[0])
+                e[2] = READ_ERROR
+            elif isinstance(err, codec.PngDecodeError):
+                _report_decode_error(err, e[0])
+                e[2] = getattr(err, "exit_code", LIBPNG_FATAL_ERROR)
+            else:
+                raise err
+
+        pending = pipeline.dispatch_buckets(
+            works, bpps, opts.strength, opts.bleed_divider, mesh=mesh)
         if opts.verbose:
             # one progress line per bucket, the batched analog of the
             # reference's per-row spinner (pngloss_image.c:214-237)
-            h, wb = p.q.shape[1], p.q.shape[2]
-            print(f"  optimizing bucket {pi + 1}/{len(pending)}: "
-                  f"{len(p.idxs)} image(s) at {wb // p.bpp}x{h}x{p.bpp}bpp",
-                  file=sys.stderr)
-        qb, fb = pipeline.collect_bucket(p)
-        with tracing.stage("host_restore"):
-            for k, i in enumerate(p.idxs):
-                qs[i] = pipeline.restore_colorspace(
-                    qb[k], p.bpp, ok[i][4].rgba.shape[1])
-                fs[i] = fb[k]
+            for pi, p in enumerate(pending):
+                h, wb = p.q.shape[1], p.q.shape[2]
+                print(f"  optimizing bucket {pi + 1}/{len(pending)}: "
+                      f"{len(p.idxs)} image(s) at {wb // p.bpp}x{h}x"
+                      f"{p.bpp}bpp", file=sys.stderr)
+        tracing.count("cli.encode_workers", pool.workers)
+        for j, res, err in pool.drain(pending, encode):
+            if err is not None:
+                raise err
+            out, n = res
+            e = ok[j]
+            filename, outname, _, data, img = e
+            if opts.verbose:
+                print(f"{filename}:", file=sys.stderr)
+                _report_input_color(img, len(data))
+                print("  compression complete", file=sys.stderr)
+                print(f"  used {n} unique symbols", file=sys.stderr)
+            if out is None:
+                if opts.verbose:
+                    kb = (len(data) - 1 + 500) // 1000
+                    print(f"  file exceeded maximum size of {kb}KB",
+                          file=sys.stderr)
+                e[2] = TOO_LARGE_FILE
+                continue
+            if opts.verbose:
+                print(f"  writing compressed image as {outname}",
+                      file=sys.stderr)
+            with tracing.stage("host_write"):
+                e[2] = _write_atomic(outname, out)
+            if e[2] == SUCCESS:
+                _print_wrote(opts, out, data, img)
 
     error_count = skipped_count = 0
     latest_error = SUCCESS
-    for j, e in enumerate(ok):
-        filename, outname, _, data, img = e
-        if opts.verbose:
-            print(f"{filename}:", file=sys.stderr)
-            _report_input_color(img, len(data))
-            print("  compression complete", file=sys.stderr)
-            n = pipeline.unique_symbol_count(
-                qs[j], fs[j], bpp=pipeline.working_bpp(img.rgba))
-            print(f"  used {n} unique symbols", file=sys.stderr)
-        max_size = len(data) - 1 if opts.skip_if_larger else 0
-        try:
-            with tracing.stage("host_encode"):
-                out = codec.encode(
-                    qs[j], row_filters=fs[j], gamma=img.gamma,
-                    color_transform=img.color_transform, chunks=img.chunks,
-                    maximum_file_size=max_size)
-        except codec.TooLargeFile:
-            if opts.verbose:
-                kb = (max_size + 500) // 1000
-                print(f"  file exceeded maximum size of {kb}KB", file=sys.stderr)
-            e[2] = TOO_LARGE_FILE
-            continue
-        if opts.verbose:
-            print(f"  writing compressed image as {outname}", file=sys.stderr)
-        with tracing.stage("host_write"):
-            e[2] = _write_atomic(outname, out)
-        if e[2] == SUCCESS:
-            _print_wrote(opts, out, data, img)
-
     for e in entries:
         if e[2] != SUCCESS:
             latest_error = e[2]

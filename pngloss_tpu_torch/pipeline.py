@@ -13,7 +13,8 @@ bucket's upload (from pinned memory), kernels and copies back into pinned
 host memory are queued on one stream of its device's small pool
 (``parallel.mesh.bucket_stream``), the buckets longest chain first, so
 the short buckets run on the SMs beside the long ones; ``compress_many``
-encodes each bucket as its copy lands. Each shard chunks itself by its
+and the batched command encode each bucket as its copy lands
+(``HostPool``). Each shard chunks itself by its
 own device's free memory. Output bytes equal ``pngloss_tpu.pipeline``'s,
 whatever the pool size and the order.
 
@@ -435,11 +436,10 @@ def compress_many(files, strength=19, bleed: int = 2, *,
     raises ``CudaUnavailableError``), or split over the devices of ``mesh``
     (``parallel.data_mesh``), which, when given, replaces ``device``.
 
-    decode pool -> colorspace reduce -> queue each shape bucket on the
-      device -> per bucket, as its host copy lands: encode pool
+    decode and colorspace reduce on the host pool -> queue each shape
+      bucket on the device -> per bucket, as its host copy lands: encode
+      on the host pool (``HostPool``)
 
-    Both host pools have os.cpu_count() threads; zlib INFLATE/DEFLATE
-    release the GIL, so the pools scale with real cores.
     strength: one int, or one per file.
     """
     with tracing.request("pipeline.compress_many"):
@@ -448,7 +448,6 @@ def compress_many(files, strength=19, bleed: int = 2, *,
 
 
 def _compress_many(files, strength, bleed, strip, skip_if_larger, mesh):
-    workers = os.cpu_count() or 1
     results = [CompressResult() for _ in files]
     per_image_strength = not np.isscalar(strength)
     if per_image_strength:
@@ -462,75 +461,117 @@ def _compress_many(files, strength, bleed, strip, skip_if_larger, mesh):
         with tracing.stage("host_reduce"):
             return img, reduce_colorspace(img.rgba)
 
+    def _encode(j: int, q_work: np.ndarray, f_row: np.ndarray) -> bytes:
+        img = decoded[ok_idx[j]][0][0]
+        with tracing.stage("host_restore"):
+            rgba = restore_colorspace(q_work, bpps[j], widths[j])
+        max_size = len(files[ok_idx[j]]) - 1 if skip_if_larger else 0
+        with tracing.stage("host_encode"):
+            return codec.encode(
+                rgba, row_filters=f_row, gamma=img.gamma,
+                color_transform=img.color_transform, chunks=img.chunks,
+                maximum_file_size=max_size)
+
     # dedup identical inputs (the suite's same-file-many-strengths
     # pattern): decode + colorspace-reduce each distinct byte string once
     distinct: dict[bytes, list[int]] = {}
     for i, d in enumerate(files):
         distinct.setdefault(d, []).append(i)
-    work_items = [(idxs, files[idxs[0]]) for idxs in distinct.values()]
-    if workers > 1 and len(work_items) > 1:
-        decode = tracing.carry(lambda it: _try(_decode, it[1]))
-        with _futures.ThreadPoolExecutor(workers) as pool:
-            uniq = list(pool.map(decode, work_items))
-    else:
-        uniq = [_try(_decode, it[1]) for it in work_items]
-    decoded: list = [None] * len(files)
-    for (idxs, _), res in zip(work_items, uniq):
-        for i in idxs:
-            decoded[i] = res
+    with HostPool() as pool:
+        uniq = pool.map(_decode, list(distinct))
+        decoded: list = [None] * len(files)
+        for idxs, res in zip(distinct.values(), uniq):
+            for i in idxs:
+                decoded[i] = res
 
-    ok_idx, works, bpps, widths = [], [], [], []
-    for i, (payload, err) in enumerate(decoded):
-        results[i].input_size = len(files[i])
-        if err is not None:
-            results[i].error = err
-        else:
-            img, (work, bpp) = payload
-            ok_idx.append(i)
-            works.append(work)
-            bpps.append(bpp)
-            widths.append(img.rgba.shape[1])
-    if not ok_idx:
-        return results
+        ok_idx, works, bpps, widths = [], [], [], []
+        for i, (payload, err) in enumerate(decoded):
+            results[i].input_size = len(files[i])
+            if err is not None:
+                results[i].error = err
+            else:
+                img, (work, bpp) = payload
+                ok_idx.append(i)
+                works.append(work)
+                bpps.append(bpp)
+                widths.append(img.rgba.shape[1])
+        if not ok_idx:
+            return results
 
-    s_ok = ([strength[i] for i in ok_idx] if per_image_strength
-            else strength)
-    pending = dispatch_buckets(works, bpps, s_ok, bleed, mesh=mesh)
-
-    def _encode(j: int, q_work: np.ndarray, f_row: np.ndarray) -> None:
-        i = ok_idx[j]
-        img = decoded[i][0][0]
-        with tracing.stage("host_restore"):
-            rgba = restore_colorspace(q_work, bpps[j], widths[j])
-        max_size = results[i].input_size - 1 if skip_if_larger else 0
-        try:
-            with tracing.stage("host_encode"):
-                out = codec.encode(
-                    rgba, row_filters=f_row, gamma=img.gamma,
-                    color_transform=img.color_transform, chunks=img.chunks,
-                    maximum_file_size=max_size)
-        except Exception as e:  # TooLargeFile and friends
-            results[i].error = e
-            return
-        results[i].data = out
-        results[i].output_size = len(out)
-        results[i].metadata_size = sum(len(c.data) + 12 for c in img.chunks)
-
-    # drain: as each bucket's copy lands, its encodes run on the pool
-    encode = tracing.carry(_encode)
-    with _futures.ThreadPoolExecutor(workers) as pool:
-        futs = []
-        for p in landed(pending):
-            qb, fb = _bucket_arrays(p)
-            futs += [pool.submit(encode, j, qb[k], fb[k])
-                     for k, j in enumerate(p.idxs)]
-        for fut in futs:
-            fut.result()
+        s_ok = ([strength[i] for i in ok_idx] if per_image_strength
+                else strength)
+        pending = dispatch_buckets(works, bpps, s_ok, bleed, mesh=mesh)
+        for j, out, err in pool.drain(pending, _encode):
+            r = results[ok_idx[j]]
+            if err is not None:      # TooLargeFile and friends
+                r.error = err
+                continue
+            r.data, r.output_size = out, len(out)
+            r.metadata_size = sum(len(c.data) + 12
+                                  for c in decoded[ok_idx[j]][0][0].chunks)
     return results
 
 
-def _try(fn, arg):
+def host_workers() -> int:
+    """The threads of a ``HostPool``: the cores this process may run on."""
     try:
-        return fn(arg), None
+        return len(os.sched_getaffinity(0))
+    except AttributeError:              # a platform without affinity
+        return os.cpu_count() or 1
+
+
+class HostPool:
+    """The host side of a batch, on one pool of ``host_workers()`` threads:
+    ``map`` decodes the inputs, then ``drain`` encodes each dispatched
+    bucket's images as its host copy lands, while later buckets are still
+    on the card. The native codec's inflate and deflate release the GIL,
+    so the pool scales with real cores. Work submitted runs inside the
+    caller's open span (``tracing.carry``). ``compress_many`` and the
+    batched command share it; use it as a context manager."""
+
+    def __init__(self):
+        self.workers = host_workers()
+        self._pool = _futures.ThreadPoolExecutor(self.workers)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+    def map(self, fn, items) -> list:
+        """``fn(item)`` of each item, in order: (result, None), or (None,
+        the exception it raised). One item, or a pool of one, runs in the
+        calling thread."""
+        if len(items) < 2 or self.workers < 2:
+            return [_try(fn, x) for x in items]
+        return list(self._pool.map(tracing.carry(lambda x: _try(fn, x)),
+                                   items))
+
+    def drain(self, pending, encode):
+        """As each of the ``pending`` buckets lands (``landed``), submits
+        ``encode(j, q_work, f_row)`` for each of its images ``j``
+        (``_PendingBucket.idxs``) to the pool. Yields (j, result, None) or
+        (j, None, the exception it raised), in the order of ``j``, each
+        once its encode is done: the ones already done after each landing,
+        the rest once every bucket has landed."""
+        run = tracing.carry(lambda *a: _try(encode, *a))
+        futs = [None] * sum(len(p.idxs) for p in pending)
+        nxt = 0
+        for p in landed(pending):
+            qb, fb = _bucket_arrays(p)
+            for k, j in enumerate(p.idxs):
+                futs[j] = self._pool.submit(run, j, qb[k], fb[k])
+            while nxt < len(futs) and futs[nxt] is not None \
+                    and futs[nxt].done():
+                yield nxt, *futs[nxt].result()
+                nxt += 1
+        for j in range(nxt, len(futs)):
+            yield j, *futs[j].result()
+
+
+def _try(fn, *args):
+    try:
+        return fn(*args), None
     except Exception as e:
         return None, e

@@ -22,6 +22,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _png(seed: int, kind: str = "rgb", chunks=None) -> bytes:
     rng = np.random.default_rng(seed)
     rgba = rng.integers(0, 256, (8, 8, 4), dtype=np.uint8)
+    if kind == "flat":
+        rgba[:] = (10, 200, 30, 255)
     if kind in ("gray", "gray_alpha"):
         rgba[..., 0] = rgba[..., 2] = rgba[..., 1]
     if kind in ("gray", "rgb"):
@@ -35,6 +37,8 @@ INPUTS = {
     "c.png": _png(13, "rgba"),
     "m.png": _png(14, chunks=[Chunk(b"tEXt", b"Comment\x00seeded", 1)]),
     "bad.png": b"this is not a png",
+    # its output is not smaller at -s 19: skipped under --skip-if-larger
+    "f.png": _png(15, "flat"),
 }
 
 # name -> (files present before the runs, [(argv, stdin file or None,
@@ -56,6 +60,15 @@ CASES = {
         (["-v", "-s", "19", "a.png", "missing.png", "b.png", "c.png",
           "m.png"], None, 15),
         (["-f", "-s", "19", "a.png", "c.png"], None, 0),
+    ]),
+    # every per-file outcome of the batched path in one list: an
+    # existing output without -f, a file that cannot be read, one that
+    # does not decode, one skipped as larger, good files in two buckets
+    "batched_mixed": (["c-loss.png"], [
+        (["-v", "-s", "19", "--skip-if-larger", "a.png", "c.png",
+          "missing.png", "b.png", "bad.png", "f.png", "m.png"], None, 98),
+        (["-f", "-s", "19", "--skip-if-larger", "f.png", "bad.png",
+          "a.png"], None, 25),
     ]),
     "skip_if_larger": ([], [
         (["-f", "-s", "0", "--skip-if-larger", "-"], "a.png", 98),
@@ -136,6 +149,64 @@ def test_cli_matches_jax_cli(case, tmp_path, monkeypatch, capsys):
     assert [r[0] for r in ours] == [rc for _, _, rc in CASES[case][1]]
     for k, (mine, ref) in enumerate(zip(ours, theirs)):
         assert mine == ref, f"run {k} of {case}"
+    assert our_files == their_files
+
+
+def _batched(argv) -> bool:
+    """Whether ``argv`` takes the batched path: several files, no stdio,
+    no -o."""
+    o, _ = cli.parse_options(argv)
+    return len(o.files) > 1 and not (o.using_stdin or o.using_stdout
+                                     or o.output_file_path)
+
+
+BATCHED = sorted(c for c, (_, runs) in CASES.items()
+                 if any(_batched(argv) for argv, _, _ in runs))
+
+
+@pytest.mark.parametrize("case", BATCHED)
+def test_batched_cli_on_a_pool_of_4_matches_jax_cli(case, tmp_path,
+                                                     monkeypatch, capsys):
+    """The batched path on a host pool of 4 threads: the same exit codes,
+    stdout, stderr lines in their order, and files as the JAX CLI."""
+    from pngloss_tpu_torch import pipeline
+
+    monkeypatch.setattr(pipeline, "host_workers", lambda: 4)
+    ours, our_files = _drive(cli.run, str(tmp_path / "port"), case,
+                             monkeypatch, capsys, device="cpu")
+    theirs, their_files = _drive(jax_cli.run, str(tmp_path / "jax"), case,
+                                 monkeypatch, capsys)
+    assert [r[0] for r in ours] == [rc for _, _, rc in CASES[case][1]]
+    assert ours == theirs
+    assert our_files == their_files
+
+
+def test_batched_encodes_overlap(tmp_path, monkeypatch, capsys):
+    """The first two encodes each wait at a barrier of two before they
+    run, so a run whose encodes went one after another would break it:
+    the batched case finishes, with the JAX CLI's output and files."""
+    import itertools
+    import threading
+
+    from pngloss_tpu_torch import codec, pipeline
+
+    monkeypatch.setattr(pipeline, "host_workers", lambda: 4)
+    barrier, real = threading.Barrier(2, timeout=10), codec.encode
+    calls = itertools.count()
+
+    def encode(*a, **kw):
+        if next(calls) < 2:
+            barrier.wait()
+        return real(*a, **kw)
+
+    monkeypatch.setattr(codec, "encode", encode)
+    ours, our_files = _drive(cli.run, str(tmp_path / "port"), "batched",
+                             monkeypatch, capsys, device="cpu")
+    monkeypatch.setattr(codec, "encode", real)
+    theirs, their_files = _drive(jax_cli.run, str(tmp_path / "jax"),
+                                 "batched", monkeypatch, capsys)
+    assert next(calls) > 2 and not barrier.broken
+    assert ours == theirs
     assert our_files == their_files
 
 

@@ -53,6 +53,39 @@ def test_compress_bytes_and_errors():
     assert res[1].unwrap() == jax_pipeline.compress_bytes(pngs[1], 19)
 
 
+def _fields(r):
+    err = None if r.error is None else (type(r.error).__name__,
+                                        str(r.error))
+    return r.data, err, r.input_size, r.output_size, r.metadata_size
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_compress_many_results_match_jax_pipeline(monkeypatch, workers):
+    """Every CompressResult field of a mixed list, on host pools of 1 and
+    4 threads: files in several buckets, a repeated input, bytes that do
+    not decode, and a flat image that is not smaller under
+    skip_if_larger."""
+    from pngloss_tpu.codec.pypng import Chunk
+
+    pngs, _ = _mixed_pngs()
+    noise = np.random.default_rng(2).integers(0, 256, (8, 8, 4), np.uint8)
+    noise[..., 3] = 255
+    meta = encode(noise, row_filters=None,
+                  chunks=[Chunk(b"tEXt", b"Comment\x00x", 1)])
+    flat = np.zeros((8, 8, 4), np.uint8)
+    flat[..., 3] = 255
+    files = [pngs[0], b"not a png", pngs[2], pngs[0], meta, pngs[3],
+             encode(flat, row_filters=None)]
+    monkeypatch.setattr(pipeline, "host_workers", lambda: workers)
+    got = pipeline.compress_many(files, 19, skip_if_larger=True,
+                                 device="cpu")
+    want = jax_pipeline.compress_many(files, 19, skip_if_larger=True)
+    assert [_fields(r) for r in got] == [_fields(r) for r in want]
+    assert [r.error is None for r in got] == [True, False, True, True,
+                                              True, True, False]
+    assert got[4].metadata_size > 0
+
+
 def test_optimize_rgba_batch_matches_reference():
     from pngloss_tpu.core import reference as ref
 

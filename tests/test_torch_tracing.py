@@ -93,7 +93,7 @@ def test_spans_nest_under_one_request_across_pool_threads(monkeypatch):
     bucket's dispatch, and each span is on the profiler's clock."""
     import threading
 
-    monkeypatch.setattr(os, "cpu_count", lambda: 4)
+    monkeypatch.setattr(pipeline, "host_workers", lambda: 4)
     first = _last_id()
     with _profiled():
         pipeline.compress_many(_distinct_pngs(3), 19, device="cpu")
@@ -213,9 +213,15 @@ def test_cli_run_writes_a_trace_where_asked(monkeypatch, tmp_path):
             "host_write", "device_fetch"} <= names
 
 
-def test_batched_cli_spans_its_host_stages(tmp_path):
+def test_batched_cli_spans_its_host_stages(tmp_path, monkeypatch):
+    """The batched command is one request: each file's read, decode,
+    reduce, restore and encode on the host pool's threads, its write in
+    the calling thread, and the pool's size counted once."""
+    import threading
+
     from pngloss_tpu_torch import cli
 
+    monkeypatch.setattr(pipeline, "host_workers", lambda: 4)
     paths = []
     for k, data in enumerate(_distinct_pngs(2)):
         paths.append(tmp_path / f"in{k}.png")
@@ -230,10 +236,17 @@ def test_batched_cli_spans_its_host_stages(tmp_path):
     for s in spans:
         if s.parent == root.id:
             count[s.name] = count.get(s.name, 0) + 1
-    assert count == {"host_read": 2, "host_decode": 2, "host_reduce": 1,
+    assert count == {"host_read": 2, "host_decode": 2, "host_reduce": 2,
                      "host_pack": 1, "device_dispatch_8x8x4": 1,
-                     "device_fetch": 1, "host_restore": 1, "host_encode": 2,
+                     "device_fetch": 1, "host_restore": 2, "host_encode": 2,
                      "host_write": 2}
+    here = threading.get_ident()
+    for s in spans:
+        pooled = s.name in ("host_read", "host_decode", "host_reduce",
+                            "host_restore", "host_encode")
+        assert (s.thread != here) == pooled, s.name
+    assert [(c.name, c.n) for c in tracing.records()["counts"]
+            if c.request == root.id] == [("cli.encode_workers", 4)]
 
 
 def test_ladder_counters_equal_the_plain_ladders_sums(monkeypatch):
