@@ -207,7 +207,8 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
     kernels and copies back on that stream, so in either mode nothing
     waits for the card and this returns once the work is queued. The pending
     buckets come back in the order their shapes first appear, as
-    ``pngloss_tpu.pipeline`` returns them."""
+    ``pngloss_tpu.pipeline`` returns them. While tracing, the number of
+    buckets is counted to the open request (``pipeline.buckets``)."""
     mesh = resolve_mesh(device, mesh)
     per_image = not np.isscalar(strength)
     buckets: dict[tuple[int, int, int], list[int]] = {}
@@ -215,6 +216,7 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
         h, wb = wk.shape
         key = (pad_dim(h), pad_dim(wb // bpp) * bpp, bpp)
         buckets.setdefault(key, []).append(i)
+    tracing.count("pipeline.buckets", len(buckets))
 
     pending = {}
     for slot, key in enumerate(dispatch_order(list(buckets))):

@@ -26,7 +26,7 @@ import subprocess
 import sys
 import time
 
-from pngloss_tpu_torch import codec
+from pngloss_tpu_torch import codec, tracing
 from pngloss_tpu_torch.metrics import psnr_rgba
 
 
@@ -43,15 +43,25 @@ def run_suite(paths, strengths, oracle=None, out_dir=None, *, device="cuda",
               mesh=None, verbose=True):
     """Compress every file at every strength on ``device`` or over
     ``mesh`` (which, when given, replaces ``device``). Returns (rows,
-    summary) as ``pngloss_tpu.suite.run_suite`` does."""
-    from pngloss_tpu_torch.pipeline import compress_many
+    summary) as ``pngloss_tpu.suite.run_suite`` does. One request
+    (``tracing.request``): the files' reads (``host_read``), the
+    ``compress_many`` call, then per job its report (``suite.report``:
+    decode, PSNR, the oracle's bytes) and its write (``host_write``)."""
     from pngloss_tpu_torch.parallel import resolve_mesh
 
     mesh = resolve_mesh(device, mesh)
+    with tracing.request("suite.run_suite"):
+        return _run_suite(paths, strengths, oracle, out_dir, mesh, verbose)
+
+
+def _run_suite(paths, strengths, oracle, out_dir, mesh, verbose):
+    from pngloss_tpu_torch.pipeline import compress_many
+
     files = {}
-    for p in paths:
-        with open(p, "rb") as fh:
-            files[p] = fh.read()
+    with tracing.stage("host_read"):
+        for p in paths:
+            with open(p, "rb") as fh:
+                files[p] = fh.read()
     results = []
     total_in = total_out = 0
     total_mp = 0.0
@@ -73,35 +83,38 @@ def run_suite(paths, strengths, oracle=None, out_dir=None, *, device="cuda",
             results.append(dict(file=name, strength=strength,
                                 error=str(res.error)))
             continue
-        if p not in in_decoded:
-            in_decoded[p] = codec.decode(data)
-        img = in_decoded[p]
-        qimg = codec.decode(res.data)
-        mp = img.width * img.height / 1e6
-        total_mp += mp
-        p_db = psnr_rgba(img.rgba, qimg.rgba)
-        row = dict(
-            file=name, strength=strength, in_bytes=len(data),
-            out_bytes=len(res.data),
-            ratio=round(len(res.data) / len(data), 4),
-            psnr_db=round(p_db, 2) if p_db != float("inf") else "inf",
-        )
-        total_in += len(data)
-        total_out += len(res.data)
-        if oracle:
-            ref = run_oracle(oracle, data, strength)
-            row["byte_identical"] = res.data == ref
-            parity_ok &= row["byte_identical"]
-            if not row["byte_identical"]:
-                row["oracle_bytes"] = len(ref)
-                rimg = codec.decode(ref)
-                row["oracle_psnr_db"] = round(psnr_rgba(img.rgba, rimg.rgba), 2)
+        with tracing.stage("suite.report"):
+            if p not in in_decoded:
+                in_decoded[p] = codec.decode(data)
+            img = in_decoded[p]
+            qimg = codec.decode(res.data)
+            mp = img.width * img.height / 1e6
+            total_mp += mp
+            p_db = psnr_rgba(img.rgba, qimg.rgba)
+            row = dict(
+                file=name, strength=strength, in_bytes=len(data),
+                out_bytes=len(res.data),
+                ratio=round(len(res.data) / len(data), 4),
+                psnr_db=round(p_db, 2) if p_db != float("inf") else "inf",
+            )
+            total_in += len(data)
+            total_out += len(res.data)
+            if oracle:
+                ref = run_oracle(oracle, data, strength)
+                row["byte_identical"] = res.data == ref
+                parity_ok &= row["byte_identical"]
+                if not row["byte_identical"]:
+                    row["oracle_bytes"] = len(ref)
+                    rimg = codec.decode(ref)
+                    row["oracle_psnr_db"] = round(
+                        psnr_rgba(img.rgba, rimg.rgba), 2)
         results.append(row)
         if out_dir:
-            os.makedirs(out_dir, exist_ok=True)
-            with open(os.path.join(
-                    out_dir, f"{name[:-4]}-s{strength}.png"), "wb") as f:
-                f.write(res.data)
+            with tracing.stage("host_write"):
+                os.makedirs(out_dir, exist_ok=True)
+                with open(os.path.join(
+                        out_dir, f"{name[:-4]}-s{strength}.png"), "wb") as f:
+                    f.write(res.data)
         if verbose:
             print(json.dumps(row), file=sys.stderr)
 

@@ -216,7 +216,8 @@ def test_cli_run_writes_a_trace_where_asked(monkeypatch, tmp_path):
 def test_batched_cli_spans_its_host_stages(tmp_path, monkeypatch):
     """The batched command is one request: each file's read, decode,
     reduce, restore and encode on the host pool's threads, its write in
-    the calling thread, and the pool's size counted once."""
+    the calling thread, and the pool's size and the shape buckets counted
+    once each."""
     import threading
 
     from pngloss_tpu_torch import cli
@@ -246,7 +247,8 @@ def test_batched_cli_spans_its_host_stages(tmp_path, monkeypatch):
                             "host_restore", "host_encode")
         assert (s.thread != here) == pooled, s.name
     assert [(c.name, c.n) for c in tracing.records()["counts"]
-            if c.request == root.id] == [("cli.encode_workers", 4)]
+            if c.request == root.id] == [("pipeline.buckets", 1),
+                                         ("cli.encode_workers", 4)]
 
 
 def test_ladder_counters_equal_the_plain_ladders_sums(monkeypatch):
@@ -277,7 +279,7 @@ def test_ladder_counters_equal_the_plain_ladders_sums(monkeypatch):
     (root,) = [s for s in _spans_after(first) if s.parent is None]
     got = dict.fromkeys(sums, 0)
     for c in tracing.records()["counts"]:
-        if c.request == root.id:
+        if c.request == root.id and c.name.startswith("ladder."):
             got[c.name] += c.n
     assert got == sums
     assert got["ladder.rows"] == 4 + 3 + 6
@@ -285,12 +287,14 @@ def test_ladder_counters_equal_the_plain_ladders_sums(monkeypatch):
 
 
 def test_cli_mode_counts_nothing():
+    """CLI mode counts no ladder counter: a request's only counter is its
+    shape buckets."""
     first = _last_id()
     with _profiled():
         pipeline.compress_many([_png()], 19, device="cpu")
     (root,) = [s for s in _spans_after(first) if s.parent is None]
-    assert not [c for c in tracing.records()["counts"]
-                if c.request == root.id]
+    assert [(c.name, c.n) for c in tracing.records()["counts"]
+            if c.request == root.id] == [("pipeline.buckets", 1)]
 
 
 def test_snapshot_reset_leaves_records():
