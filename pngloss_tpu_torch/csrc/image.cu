@@ -55,6 +55,33 @@
 // The TPU kernel's lane rolls, selection matmuls and bf16 tricks are TPU
 // forms of this broadcast and are not needed here.
 //
+// split::image_kernel, CLI mode for launches whose images each fit a cluster
+// of their own (ops/image.pick_split): the same chain, one image per
+// thread-block cluster of 2 blocks of 4 warps, each block on an SM of its
+// own. Block 0 runs filters 0-3, one warp on each of the SM's four
+// schedulers; block 1 runs filter 4, and its other three warps only copy and
+// meet. In image_kernel two of the five warps share a scheduler. On an H100
+// the 2-block layout took 16-17% less time than image_kernel over the rows
+// of a 1920x1080 screenshot, 5 one-warp blocks on 5 SMs no less, and 5
+// blocks of 4 warps, one of them running, 14% less (PERF.md §6). The launch bound asks for one block per SM, and each
+// block claims more than half of the SM's shared memory (plk::kRungClaim), as
+// a ladder rung does, so no two blocks share an SM.
+// Per row: each running warp posts its cost to its block's shared memory and
+// the cluster meets (barrier.cluster); every thread reads the five costs,
+// over distributed shared memory where another block holds them, and picks
+// the same first minimum; the winning warp posts its histogram and the
+// cluster meets again. The winner's block reads the winner's set in place, as
+// image_kernel does; the other block copies the histogram over distributed
+// shared memory, and the winner's row and next dither rows from the winner's
+// global set into its own first filter's set, which its warps then read. The
+// copy reads with ld.global.cg, coherent across SMs and ordered by the
+// barrier's release and acquire, because the chain reads its previous row
+// through const __restrict__ pointers that may compile to non-coherent loads,
+// which the barrier does not order (as in ladder_kernel below): the chain
+// only ever reads rows its own block wrote. Only the winner writes filt; the
+// previous row's winner's block copies that row to qrows off its chain, and
+// block 0 writes the padded rows.
+//
 // ladder_kernel: the attempts of one row at strengths s, s-1, ... all start
 // from the same state (the previous row's winner row, dither rows and
 // histogram), so they are independent; the loop keeps the first of them, in
@@ -232,6 +259,193 @@ image_kernel(const int* __restrict__ s, int bleed,
       my_q[(hr - 2) * wb + i] = qprev[i];
   zero_padded(b, hr, H, wb, tid, qrows, filt);
   if (ADAPTIVE && tid == 0) ok[b] = all_rows_pass;
+}
+
+// n elements of T from src, which another block of the cluster wrote before
+// the barrier, to dst, by the block: coherent loads (ld.global.cg), kAhead in
+// flight per thread.
+template <typename T>
+__device__ __forceinline__ void copy_coherent(T* __restrict__ dst,
+                                              const T* src, long long n,
+                                              int tid) {
+  constexpr int kAhead = 4;
+  const int nt = blockDim.x;
+  long long i = tid;
+  for (; i + (kAhead - 1) * nt < n; i += kAhead * nt) {
+    T v[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) v[u] = __ldcg(src + i + u * nt);
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) dst[i + u * nt] = v[u];
+  }
+  for (; i < n; i += nt) dst[i] = __ldcg(src + i);
+}
+
+namespace split {
+
+// filters a block runs, one a warp: block 0 runs filters 0-3, block 1
+// filter 4 (its other warps only copy and meet)
+constexpr int kPerBlock = 4;
+constexpr int kBlocks = (plk::kFilters + kPerBlock - 1) / kPerBlock;
+constexpr int kThreads = kPerBlock * plk::kWarp;
+
+// One image per cluster of kBlocks blocks; see the header. cand, e0n5, e1n5
+// hold one set per (ping-pong parity, image, filter), as for the one-block
+// kernel.
+template <int BPP>
+__global__ void __launch_bounds__(kThreads, 1)
+image_kernel(const int* __restrict__ s, int bleed,
+             const int* __restrict__ w_real, const int* __restrict__ h_real,
+             const int* __restrict__ ofreq,
+             const uint8_t* __restrict__ rows,
+             const int* __restrict__ qprev0, const int* __restrict__ e00,
+             const int* __restrict__ e10, const int* __restrict__ hist0,
+             int* __restrict__ qrows, int* __restrict__ filt, int* cand,
+             int* e0n5, int* e1n5, int B, int H, int W) {
+  __shared__ int os[plk::kFilters][256];      // rank keys (rank_keys)
+  __shared__ int hw[256];                     // histogram at row start
+  __shared__ long long cost[kPerBlock];       // this block's filters' costs
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / kBlocks;
+  const int tid = threadIdx.x;
+  const int warp = tid / plk::kWarp;
+  const int lane = tid % plk::kWarp;
+  const int f = rank * kPerBlock + warp;
+  const bool runs = f < plk::kFilters;        // warp-uniform
+  const long long wb = static_cast<long long>(W) * BPP;
+  const long long we = static_cast<long long>(W + 5) * 4;
+  const int sb = s[b], wr = w_real[b];
+  const int hr = min(max(h_real[b], 1), H);
+  const plk::Divisor band = plk::make_divisor(sb + 1);
+  const plk::Divisor bl = plk::make_divisor(bleed);
+  const uint8_t* img = rows + b * wb * H;
+  int* my_q = qrows + b * wb * (H - 1);
+  // candidate k's row and next dither rows in set p (two sets, ping-pong)
+  auto set = [&](int p, int k) {
+    return (static_cast<long long>(p) * B + b) * plk::kFilters + k;
+  };
+
+  // load_block, but only the warps that run a filter rank its keys
+  for (int i = tid; i < plk::kFilters * 256; i += kThreads)
+    os[i / 256][i % 256] = ofreq[b * plk::kFilters * 256 + i];
+  __syncthreads();
+  plk::Hist hs;
+  if (runs) plk::rank_keys(os[f], lane);
+  hs.rk = os[runs ? f : 0];
+  for (int i = tid; i < 256; i += kThreads) hw[i] = hist0[b * 256 + i];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < plk::kSlots; ++j) hs.h[j] = hw[lane + plk::kWarp * j];
+
+  const int* qprev = qprev0 + b * wb;
+  const int* e0 = e00 + b * we;
+  const int* e1 = e10 + b * we;
+  int prev_win = 0;                           // filter that won row y-1
+  for (int y = 1, p = 0; y < hr; ++y, p ^= 1) {
+    if (runs) {
+      const long long mine = set(p, f);
+      const long long err = plk::quantize_row<BPP, true, uint8_t>(
+          f, lane, sb, band, bl, wr, W, img + y * wb, img + (y - 1) * wb,
+          qprev, e0, e1, hs, cand + mine * wb, e0n5 + mine * we,
+          e1n5 + mine * we,
+          y >= 2 && rank == prev_win / kPerBlock ? my_q + (y - 2) * wb
+                                                 : nullptr);
+      const long long bits = plk::row_bits(hs, hw, lane);
+      if (lane == 0) cost[warp] = bits + err / 128;
+    }
+    cluster.sync();
+    long long c[plk::kFilters];
+#pragma unroll
+    for (int k = 0; k < plk::kFilters; ++k)
+      c[k] = *cluster.map_shared_rank(&cost[k % kPerBlock], k / kPerBlock);
+    int best = 0;
+#pragma unroll
+    for (int k = 1; k < plk::kFilters; ++k)
+      if (c[k] < c[best]) best = k;
+    const int win = best / kPerBlock;         // the winner's block
+    if (runs && f == best) {
+#pragma unroll
+      for (int j = 0; j < plk::kSlots; ++j)
+        hw[lane + plk::kWarp * j] = hs.h[j];
+      if (lane == 0) filt[static_cast<long long>(b) * (H - 1) + y - 1] = best;
+    }
+    cluster.sync();
+    // the set this block's warps read next: the winner's where it ran here,
+    // else the block's first filter's, filled by a copy
+    long long next = set(p, best);
+    if (rank != win) {                        // block-uniform
+      next = set(p, rank * kPerBlock);
+      const int* rhw = cluster.map_shared_rank(hw, win);
+      for (int i = tid; i < 256; i += kThreads) hw[i] = rhw[i];
+      const long long src = set(p, best);
+      if (wb % 4 == 0)
+        copy_coherent(reinterpret_cast<int4*>(cand + next * wb),
+                      reinterpret_cast<const int4*>(cand + src * wb), wb / 4,
+                      tid);
+      else
+        copy_coherent(cand + next * wb, cand + src * wb, wb, tid);
+      copy_coherent(reinterpret_cast<int4*>(e0n5 + next * we),
+                    reinterpret_cast<const int4*>(e0n5 + src * we), W + 5,
+                    tid);
+      copy_coherent(reinterpret_cast<int4*>(e1n5 + next * we),
+                    reinterpret_cast<const int4*>(e1n5 + src * we), W + 5,
+                    tid);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < plk::kSlots; ++j) hs.h[j] = hw[lane + plk::kWarp * j];
+    prev_win = best;
+    qprev = cand + next * wb;
+    e0 = e0n5 + next * we;
+    e1 = e1n5 + next * we;
+  }
+  // the last real row's winner, which no later row copies
+  if (hr >= 2 && rank == prev_win / kPerBlock)
+    for (long long i = tid; i < wb; i += kThreads)
+      my_q[(hr - 2) * wb + i] = qprev[i];
+  if (rank == 0) zero_padded(b, hr, H, wb, tid, qrows, filt);
+  // no block may leave while another can still read its shared memory
+  cluster.sync();
+}
+
+}  // namespace split
+
+using SplitFn = void (*)(const int*, int, const int*, const int*, const int*,
+                         const uint8_t*, const int*, const int*, const int*,
+                         const int*, int*, int*, int*, int*, int*, int, int,
+                         int);
+
+cudaError_t split_kernel_of(int bpp, SplitFn* kernel) {
+  switch (bpp) {
+    case 1: *kernel = split::image_kernel<1>; break;
+    case 2: *kernel = split::image_kernel<2>; break;
+    case 3: *kernel = split::image_kernel<3>; break;
+    case 4: *kernel = split::image_kernel<4>; break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
+// the split kernel's shared-memory claims (plk::claim_shared)
+std::atomic<unsigned> split_claimed[plk::kMaxDevices];
+
+// The split kernel at bpp and its launch configuration for B images, its
+// shared-memory claim made on the current device.
+cudaError_t split_config(int bpp, int B, SplitFn* kernel,
+                         cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+  cudaError_t err = split_kernel_of(bpp, kernel);
+  if (err == cudaSuccess) err = plk::claim_shared(*kernel, bpp, split_claimed);
+  if (err != cudaSuccess) return err;
+  *attr = plk::cluster_of(split::kBlocks);
+  *cfg = {};
+  cfg->gridDim = dim3(static_cast<unsigned>(B) * split::kBlocks);
+  cfg->blockDim = dim3(split::kThreads);
+  cfg->dynamicSmemBytes = plk::kRungClaim;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 // One image per cluster of k rungs (the cluster's size); see the header.
@@ -506,6 +720,48 @@ extern "C" int plk_image_rows(const void* s, int bleed, const void* w_real,
   }
 #undef PLK_IMAGE_LAUNCH
   return static_cast<int>(cudaGetLastError());
+}
+
+// CLI mode on split::image_kernel, a cluster of 2 blocks per image;
+// arguments as for plk_image_rows (ok, attempts, rounds and never_pass are
+// the other variants' and are not taken; k = 1 in the scratch's shape).
+extern "C" int plk_image_split(const void* s, int bleed, const void* w_real,
+                               const void* h_real, const void* ofreq,
+                               const void* rows, const void* qprev0,
+                               const void* e00, const void* e10,
+                               const void* hist0, void* qrows, void* filt,
+                               void* cand, void* e0n5, void* e1n5, int B,
+                               int H, int W, int bpp, void* stream) {
+  if (B <= 0 || H < 2) return static_cast<int>(cudaGetLastError());
+  SplitFn kernel = nullptr;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = split_config(bpp, B, &kernel, &attr, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const int*>(s), bleed,
+      static_cast<const int*>(w_real), static_cast<const int*>(h_real),
+      static_cast<const int*>(ofreq), static_cast<const uint8_t*>(rows),
+      static_cast<const int*>(qprev0), static_cast<const int*>(e00),
+      static_cast<const int*>(e10), static_cast<const int*>(hist0),
+      static_cast<int*>(qrows), static_cast<int*>(filt),
+      static_cast<int*>(cand), static_cast<int*>(e0n5),
+      static_cast<int*>(e1n5), B, H, W);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The most clusters of split::image_kernel at bpp that the card keeps
+// resident at once (cudaOccupancyMaxActiveClusters), into *clusters.
+extern "C" int plk_split_clusters(int bpp, int* clusters) {
+  SplitFn kernel = nullptr;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = split_config(bpp, 1, &kernel, &attr, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(kernel), &cfg));
 }
 
 // The most clusters of k rungs of the ladder at bpp that the card keeps

@@ -35,14 +35,16 @@ def resolve_device(device) -> torch.device:
 
 def optimize_batch_auto(rows, strength, bleed: int = 2, *, bpp: int, device,
                         use_row_filters: bool = True, w_real=None,
-                        h_real=None):
+                        h_real=None, in_flight=None):
     """Optimize a batch of same-shaped working-format planes.
 
     rows: (B, H, W*bpp) uint8, numpy or tensor. strength: int or per-image
     (B,) values. w_real/h_real: per-image real sizes of padded planes
     (ragged batching). use_row_filters=False is embedding mode: every row
-    must pass libpng's MSAD self-check. Returns ((B, H, W*bpp) uint8,
-    (B, H) int8) tensors on ``device``. Host arrays go to a CUDA device
+    must pass libpng's MSAD self-check. in_flight: the images the caller
+    has on the card at once, these among them (None: these alone), which
+    pick CLI mode's layout (``image.pick_split``). Returns ((B, H, W*bpp)
+    uint8, (B, H) int8) tensors on ``device``. Host arrays go to a CUDA device
     from pinned memory without blocking; the call only queues work on
     the current stream and returns without waiting for the card.
     """
@@ -62,7 +64,7 @@ def optimize_batch_auto(rows, strength, bleed: int = 2, *, bpp: int, device,
                                     for v in (strength, w_real, h_real))
     return optimize_batch(rows, strength, int(bleed), bpp=bpp,
                           use_row_filters=use_row_filters,
-                          w_real=w_real, h_real=h_real)
+                          w_real=w_real, h_real=h_real, in_flight=in_flight)
 
 
 __all__ = ["CudaUnavailableError", "optimize_batch", "optimize_batch_auto",

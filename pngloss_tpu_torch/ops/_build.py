@@ -52,6 +52,8 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P),
     "plk_ladder_clusters": (_I, _I, _P),
+    "plk_image_split": (_P, _I, *(_P,) * 13, _I, _I, _I, _I, _P),
+    "plk_split_clusters": (_I, _P),
 }
 
 _lock = threading.Lock()

@@ -23,6 +23,12 @@ variants:
     a cluster of k blocks per image tries k strengths of a row at once
     (``ladder_size`` picks k), and keeps the highest that passes.
 
+On the card CLI mode has two layouts: one block of 5 warps per image, one
+warp per filter, or, where every image the caller has in flight fits
+(``pick_split``), the split layout: a cluster of ``SPLIT_SMS`` blocks per
+image, each on an SM of its own, filters 0-3 on the first and filter 4 on
+the second, so that no two filters share a scheduler.
+
 Every variant stops at each image's last real row (``h_real``): padded
 rows neither clear ``ok`` nor retry, and come out as 0.
 
@@ -43,6 +49,7 @@ import ctypes
 
 import torch
 
+from pngloss_tpu_torch import tracing
 from pngloss_tpu_torch.ops import _build, ladder
 from pngloss_tpu_torch.ops.ladder import check_rungs, ladder_round
 from pngloss_tpu_torch.ops.optimize import (
@@ -57,10 +64,17 @@ from pngloss_tpu_torch.ops.optimize import (
     strength_loop,
 )
 
-# launches of the kernel's CLI, adaptive and retry (ladder) variants
+# launches of the kernel's CLI, adaptive and retry (ladder) variants, and
+# of the CLI variant's launches those that took the split layout
 LAUNCHES = 0
 ADAPTIVE_LAUNCHES = 0
 RETRY_LAUNCHES = 0
+SPLIT_LAUNCHES = 0
+# SMs an image takes in the split layout (split::kBlocks in csrc/image.cu)
+SPLIT_SMS = 2
+# (device index, bpp) -> clusters of the split layout the card keeps
+# resident at once
+_SPLIT_RESIDENT: dict = {}
 
 
 def _heights(h_real, b: int, h: int, device) -> torch.Tensor:
@@ -280,9 +294,41 @@ def ladder_size(b: int, bpp: int, device) -> int:
     return ladder.ladder_size(clusters, b, bpp, device)
 
 
+def pick_split(n: int, resident: int, sms: int) -> bool:
+    """Whether CLI mode takes the split layout while ``n`` images are in
+    flight on the card at once: each image on a cluster of SPLIT_SMS SMs,
+    so the n clusters must all be resident at once (``resident`` of them,
+    cudaOccupancyMaxActiveClusters) on SMs of their own (``SPLIT_SMS`` * n
+    <= ``sms``). Otherwise an image's 5 chains share one SM, and images that
+    queued behind each other would take longer than that."""
+    return 0 < n and n * SPLIT_SMS <= sms and n <= resident
+
+
+def split_clusters(bpp: int) -> int:
+    """The most clusters of the split layout at ``bpp`` that the current
+    device keeps resident at once (``plk_split_clusters``)."""
+    n = ctypes.c_int(0)
+    _build.check(_build.library().plk_split_clusters(
+        bpp, ctypes.addressof(n)), "plk_split_clusters")
+    return n.value
+
+
+def takes_split(n: int, bpp: int, device) -> bool:
+    """``pick_split`` for ``n`` images in flight at ``bpp`` on a CUDA
+    ``device``, over the split kernel's own occupancy query, made once per
+    device and bpp."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if (idx, bpp) not in _SPLIT_RESIDENT:
+        with torch.cuda.device(idx):
+            _SPLIT_RESIDENT[idx, bpp] = split_clusters(bpp)
+    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    return pick_split(n, _SPLIT_RESIDENT[idx, bpp], sms)
+
+
 def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
                adaptive: bool = False, retry: bool = False, never_pass=None,
-               h_real=None, k=None, rounds=None):
+               h_real=None, k=None, rounds=None, in_flight=None):
     """s, w_real (B,) int32; ofreq (B, 5, 256) int32; rows (B, H, W*bpp)
     uint8 originals of the whole images; the row-0 winner state: qprev0
     (B, W, bpp), e00, e10 (B, W+5, 4), hist0 (B, 256), all int32.
@@ -298,9 +344,13 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
     row of the images where it is not 0. With ``retry``: ``k``, the
     ladder's strengths tried at once (None: ``ladder_size`` on the card, 1
     on the CPU), and ``rounds`` (B,) int32, where given, gets the rounds
-    each image took. A CUDA tensor launches the kernel; a CPU tensor runs
-    the plain version."""
-    global LAUNCHES, ADAPTIVE_LAUNCHES, RETRY_LAUNCHES
+    each image took. In CLI mode: ``in_flight``, the images the caller
+    has on the card at once, this launch's among them (None: this launch's
+    B), which pick the layout (``takes_split``); while tracing, the
+    launch's images and those of them that took the split layout are
+    counted to the open request (``image.images``, ``image.split``). A
+    CUDA tensor launches the kernel; a CPU tensor runs the plain version."""
+    global LAUNCHES, ADAPTIVE_LAUNCHES, RETRY_LAUNCHES, SPLIT_LAUNCHES
     if retry and not adaptive:
         raise ValueError("retry needs adaptive: only the MSAD self-check "
                          "can fail a row")
@@ -309,6 +359,8 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
                          "self-check can fail a row")
     if (k is not None or rounds is not None) and not retry:
         raise ValueError("k and rounds are the retry variant's")
+    if in_flight is not None and adaptive:
+        raise ValueError("in_flight is CLI mode's")
     if _build.route(rows) == "cpu":
         if retry:
             return image_rows_ladder_ref(s, bleed, w_real, ofreq, rows,
@@ -360,19 +412,27 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
           if adaptive and not retry else None)
     attempts = torch.empty(b, dtype=i32, device=dev) if retry else None
     lib = _build.library()
+    split = not adaptive and takes_split(max(b, in_flight or 0), bpp, dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    inputs = (s.data_ptr(), bleed, w_real.data_ptr(), h_real.data_ptr(),
+              ofreq.data_ptr(), rows.data_ptr(), qprev0.data_ptr(),
+              e00.data_ptr(), e10.data_ptr(), hist0.data_ptr(),
+              qrows.data_ptr(), filt.data_ptr())
+    scratch = (cand.data_ptr(), e0n5.data_ptr(), e1n5.data_ptr(), b, h, w,
+               bpp)
     with torch.cuda.device(dev):
-        _build.check(lib.plk_image_rows(
-            s.data_ptr(), bleed, w_real.data_ptr(), h_real.data_ptr(),
-            ofreq.data_ptr(), rows.data_ptr(), qprev0.data_ptr(),
-            e00.data_ptr(), e10.data_ptr(), hist0.data_ptr(),
-            qrows.data_ptr(), filt.data_ptr(), ptr(ok), ptr(attempts),
-            ptr(rounds), ptr(never_pass), cand.data_ptr(), e0n5.data_ptr(),
-            e1n5.data_ptr(), b, h, w, bpp, k, _build.stream_ptr(rows)),
-            "plk_image_rows")
+        if split:
+            _build.check(lib.plk_image_split(
+                *inputs, *scratch, _build.stream_ptr(rows)),
+                "plk_image_split")
+        else:
+            _build.check(lib.plk_image_rows(
+                *inputs, ptr(ok), ptr(attempts), ptr(rounds),
+                ptr(never_pass), *scratch, k, _build.stream_ptr(rows)),
+                "plk_image_rows")
     if retry:
         RETRY_LAUNCHES += 1
         return qrows, filt, attempts
@@ -380,4 +440,7 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
         ADAPTIVE_LAUNCHES += 1
         return qrows, filt, ok
     LAUNCHES += 1
+    SPLIT_LAUNCHES += split
+    tracing.count("image.images", b)
+    tracing.count("image.split", b if split else 0)
     return qrows, filt

@@ -139,11 +139,12 @@ def optimize_rows(s, bleed: int, orig, ofreq, w_real, carry=None):
 
 
 def _optimize_chunk(rows, strength, bleed: int, bpp: int, w_real, h_real,
-                    use_row_filters: bool):
-    """One chunk through the three steps, each a span of its own. Inside a
-    ``tracing.device_counts`` block, embedding mode also reports the
-    ladder's real rows, attempts and rounds (``ladder.*``) of each image
-    as device tensors."""
+                    use_row_filters: bool, in_flight=None):
+    """One chunk through the three steps, each a span of its own; CLI
+    mode's image stage is told the images in flight (``in_flight``, as for
+    ``image.image_rows``). Inside a ``tracing.device_counts`` block,
+    embedding mode also reports the ladder's real rows, attempts and
+    rounds (``ladder.*``) of each image as device tensors."""
     b, h, wb = rows.shape
     w = wb // bpp
     with tracing.stage("ops.hist"):
@@ -165,7 +166,7 @@ def _optimize_chunk(rows, strength, bleed: int, bpp: int, w_real, h_real,
             qrows, filt, *rest = image_op.image_rows(
                 strength, bleed, w_real, ofreq, rows, c0.qprev, c0.e0,
                 c0.e1, c0.hist, adaptive=embed, retry=embed, h_real=h_real,
-                rounds=rounds)
+                rounds=rounds, in_flight=None if embed else in_flight)
             q[:, 1:] = qrows.to(torch.uint8)
             f[:, 1:] = filt.to(torch.int8)
             if tally is not None:
@@ -176,12 +177,15 @@ def _optimize_chunk(rows, strength, bleed: int, bpp: int, w_real, h_real,
 
 
 def optimize_batch(rows, strength, bleed: int = 2, *, bpp: int,
-                   use_row_filters: bool = True, w_real=None, h_real=None):
+                   use_row_filters: bool = True, w_real=None, h_real=None,
+                   in_flight=None):
     """rows (B, H, W*bpp) uint8 tensor; strength int or (B,) values;
     use_row_filters: CLI mode (True) or embedding mode (False, every row
     passes libpng's MSAD self-check); w_real/h_real (B,) real sizes of
-    padded planes. Runs on rows' device. Returns (q (B, H, W*bpp) uint8,
-    filters (B, H) int8) on that device."""
+    padded planes; in_flight: the images the caller has on the card at
+    once, these among them (None: these alone), which pick CLI mode's
+    layout (``image.pick_split``). Runs on rows' device. Returns (q (B, H,
+    W*bpp) uint8, filters (B, H) int8) on that device."""
     b, h, wb = rows.shape
     w = wb // bpp
     dev = rows.device
@@ -202,12 +206,13 @@ def optimize_batch(rows, strength, bleed: int = 2, *, bpp: int,
         chunk = max_batch(h, w, bpp, dev)
     if b <= chunk:
         return _optimize_chunk(rows, strength, int(bleed), bpp, w_real,
-                               h_real, use_row_filters)
+                               h_real, use_row_filters, in_flight)
     qs, fs = [], []
     for lo in range(0, b, chunk):
         sl = slice(lo, lo + chunk)
         q, f = _optimize_chunk(rows[sl], strength[sl], int(bleed), bpp,
-                               w_real[sl], h_real[sl], use_row_filters)
+                               w_real[sl], h_real[sl], use_row_filters,
+                               in_flight)
         qs.append(q)
         fs.append(f)
     return torch.cat(qs), torch.cat(fs)

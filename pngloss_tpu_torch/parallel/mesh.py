@@ -114,7 +114,7 @@ def shard_bounds(b: int, n: int) -> list[tuple[int, int]]:
 def optimize_batch_sharded(rows, strength, bleed: int = 2, *, bpp: int,
                            use_row_filters: bool = True, mesh,
                            fetch: bool = True, w_real=None, h_real=None,
-                           slot=None):
+                           slot=None, in_flight=None):
     """Batch optimize with the batch axis split over ``mesh``.
 
     rows: (B, H, W*bpp) uint8, numpy or tensor. strength and the real
@@ -127,7 +127,10 @@ def optimize_batch_sharded(rows, strength, bleed: int = 2, *, bpp: int,
     shard's device (empty shards, where B < len(mesh), are left out), so
     the caller can overlap the device-to-host copies with other work.
     slot: run each shard on its device's stream for that bucket slot
-    (``bucket_stream``); None runs on the current stream."""
+    (``bucket_stream``); None runs on the current stream. in_flight: the
+    images the caller has on the card at once, these among them (None:
+    these alone), which pick CLI mode's layout on each device
+    (``ops.image.pick_split``)."""
     mesh = data_mesh(mesh)
     b = rows.shape[0]
 
@@ -152,7 +155,8 @@ def optimize_batch_sharded(rows, strength, bleed: int = 2, *, bpp: int,
                     out[k] = optimize_batch_auto(
                         rows[lo:hi], s[lo:hi], bleed, bpp=bpp, device=d,
                         use_row_filters=use_row_filters,
-                        w_real=cut(wr, lo, hi), h_real=cut(hr, lo, hi))
+                        w_real=cut(wr, lo, hi), h_real=cut(hr, lo, hi),
+                        in_flight=in_flight)
 
     devices = list(dict.fromkeys(d for d, _, _ in shards))
     if len(devices) == 1:

@@ -207,8 +207,12 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
     kernels and copies back on that stream, so in either mode nothing
     waits for the card and this returns once the work is queued. The pending
     buckets come back in the order their shapes first appear, as
-    ``pngloss_tpu.pipeline`` returns them. While tracing, the number of
-    buckets is counted to the open request (``pipeline.buckets``)."""
+    ``pngloss_tpu.pipeline`` returns them. Every bucket's launches are
+    told that all the call's images are in flight at once, which picks CLI
+    mode's layout (``ops.image.pick_split``): buckets that each fit the
+    split layout alone but not together would queue behind each other.
+    While tracing, the number of buckets is counted to the open request
+    (``pipeline.buckets``)."""
     mesh = resolve_mesh(device, mesh)
     per_image = not np.isscalar(strength)
     buckets: dict[tuple[int, int, int], list[int]] = {}
@@ -237,7 +241,7 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
             qs, fs, _ = optimize_batch_sharded(
                 batch, s, bleed, bpp=bpp, use_row_filters=use_row_filters,
                 mesh=mesh, fetch=False, w_real=w_real, h_real=h_real,
-                slot=slot)
+                slot=slot, in_flight=len(works))
             with tracing.stage("host_gather"):
                 counts = _counts_to_host(tally, slot)
                 qh, fh, done = _gather_to_host(qs, fs, slot)
