@@ -178,55 +178,6 @@ def _write_atomic(outname: str, data: bytes) -> int:
     return SUCCESS
 
 
-def _compress_one(
-    data: bytes, opts: Options, verbose_name: str, *, mesh,
-) -> tuple[bytes | None, bytes | None, int, "codec.DecodedImage | None"]:
-    """Read/optimize/encode one file's bytes. Returns
-    (output_bytes, fallback_original_bytes, retval, decoded_image)."""
-    from pngloss_tpu_torch import pipeline
-
-    try:
-        with tracing.stage("host_decode"):
-            img = codec.decode(data, strip=opts.strip)
-    except codec.PngDecodeError as e:
-        _report_decode_error(e, verbose_name, opts.using_stdin)
-        return None, None, getattr(e, "exit_code", LIBPNG_FATAL_ERROR), None
-
-    if opts.verbose:
-        _report_input_color(img, len(data))
-
-    q, filters = pipeline.optimize_rgba(
-        img.rgba, opts.strength, opts.bleed_divider, mesh=mesh)
-
-    if opts.verbose:
-        print("  compression complete", file=sys.stderr)
-        n = pipeline.unique_symbol_count(
-            q, filters, bpp=pipeline.working_bpp(img.rgba))
-        print(f"  used {n} unique symbols", file=sys.stderr)
-
-    max_size = len(data) - 1 if opts.skip_if_larger else 0
-    try:
-        with tracing.stage("host_encode"):
-            out = codec.encode(
-                q, row_filters=filters, gamma=img.gamma,
-                color_transform=img.color_transform, chunks=img.chunks,
-                maximum_file_size=max_size)
-    except codec.TooLargeFile as e:
-        if opts.verbose:
-            kb = (max_size + 500) // 1000
-            print(f"  file exceeded maximum size of {kb}KB", file=sys.stderr)
-        # stdout mode: the oversized attempt, then the original 24-bit
-        # image, as the reference streams them (pngloss.c:290-297)
-        fallback = None
-        if opts.using_stdout:
-            fallback = e.data + codec.encode(
-                img.rgba, row_filters=None, gamma=img.gamma,
-                color_transform=img.color_transform, chunks=img.chunks)
-        return None, fallback, TOO_LARGE_FILE, img
-
-    return out, None, SUCCESS, img
-
-
 def _print_wrote(opts, out: bytes, data: bytes, img) -> None:
     if not opts.verbose:
         return
@@ -364,80 +315,110 @@ def run(argv: list[str], stdin: io.RawIOBase | None = None,
         return _run_files(opts, stdin, stdout, device, mesh)
 
 
+class _File:
+    """One input file of a call: its name, the name its lines give it,
+    its output's name (None for stdout), its exit code so far, the
+    overwrite guard's first, and its ``pipeline.Prepared`` once decoded."""
+
+    def __init__(self, opts: Options, name: str):
+        self.name = name
+        self.display = "stdin" if opts.using_stdin else name
+        self.outname = None if opts.using_stdout else (
+            opts.output_file_path
+            or add_filename_extension(name, opts.extension))
+        guarded = (self.outname is not None and not opts.force
+                   and os.path.exists(self.outname))
+        self.retval = NOT_OVERWRITING_ERROR if guarded else SUCCESS
+        self.prep = None
+
+
 def _run_files(opts, stdin, stdout, device, mesh) -> int:
-    """The compressing part of ``run``: every file of ``opts``."""
+    """The compressing part of ``run`` (pngloss_main_internal,
+    pngloss.c:168-224), on the pipeline's one path for one file or many:
+    each file read and prepared on ``pipeline.HostPool`` (in the calling
+    thread for one file), every shape bucket optimized in one call, each
+    image finished on the pool as its bucket lands, and written with its
+    lines in file order. Every guard and read or decode error is reported
+    before the first bucket. Under -v one file is named before its read,
+    as the reference's sequential mode does; several are named with their
+    results, after one line per bucket, as its batched mode does."""
+    from pngloss_tpu_torch import pipeline
+
     mesh = _resolve(device, mesh)
     if mesh is None:
         return NO_CUDA
-
     stdin = stdin if stdin is not None else sys.stdin.buffer
     stdout = stdout if stdout is not None else sys.stdout.buffer
+    files = [_File(opts, name) for name in opts.files]
+    several = len(files) > 1
 
-    # pngloss_main_internal (pngloss.c:168-224); several file inputs take
-    # the batched path: the same per-file behaviour and output, with one
-    # optimizer call per shape bucket
-    if len(opts.files) > 1 and not opts.using_stdin and not opts.using_stdout:
-        return _run_batched(opts, mesh=mesh)
-
-    error_count = skipped_count = file_count = 0
-    latest_error = SUCCESS
-    for filename in opts.files:
-        display = "stdin" if opts.using_stdin else filename
-        retval = SUCCESS
-        outname = opts.output_file_path
-        if not opts.using_stdout:
-            if not outname:
-                outname = add_filename_extension(filename, opts.extension)
-            if not opts.force and os.path.exists(outname):
-                print(f"  error: '{outname}' exists; not overwriting", file=sys.stderr)
-                retval = NOT_OVERWRITING_ERROR
-
-        if retval == SUCCESS:
-            if opts.verbose:
-                print(f"{display}:", file=sys.stderr)
-            try:
-                with tracing.stage("host_read"):
-                    if opts.using_stdin:
-                        data = stdin.read()
-                    else:
-                        with open(filename, "rb") as fh:
-                            data = fh.read()
-            except OSError:
-                if not opts.using_stdin:
-                    _report_cannot_open(filename)
-                retval = READ_ERROR
-                data = None
-            if retval == SUCCESS:
-                out, fallback, retval, img = _compress_one(
-                    data, opts, display, mesh=mesh)
-                if retval == SUCCESS:
-                    if opts.using_stdout:
-                        if opts.verbose:
-                            print("  writing compressed image to stdout",
-                                  file=sys.stderr)
-                        with tracing.stage("host_write"):
-                            stdout.write(out)
-                    else:
-                        if opts.verbose:
-                            print(f"  writing compressed image as {outname}",
-                                  file=sys.stderr)
-                        with tracing.stage("host_write"):
-                            retval = _write_atomic(outname, out)
-                    if retval == SUCCESS:
-                        _print_wrote(opts, out, data, img)
-                elif fallback is not None:
-                    stdout.write(fallback)
-
-        if retval != SUCCESS:
-            latest_error = retval
-            if retval in (TOO_LOW_QUALITY, TOO_LARGE_FILE):
-                skipped_count += 1
+    def load(f):
+        with tracing.stage("host_read"):
+            if opts.using_stdin:
+                data = stdin.read()
             else:
-                error_count += 1
-        file_count += 1
+                with open(f.name, "rb") as fh:
+                    data = fh.read()
+        return pipeline.prepare(data, opts.strip)
 
-    _verbose_summary(opts, error_count, skipped_count, file_count)
-    return latest_error
+    def finish(j, q_work, f_row):
+        """(the PNG, or the codec.TooLargeFile raised under
+        --skip-if-larger; the symbol count for -v)."""
+        prep = ok[j].prep
+        n = (pipeline.symbol_count(q_work, f_row, prep.bpp)
+             if opts.verbose else None)
+        try:
+            return pipeline.finish(prep, q_work, f_row,
+                                   opts.skip_if_larger), n
+        except codec.TooLargeFile as e:
+            return e, n
+
+    with pipeline.HostPool() as pool:
+        todo = [f for f in files if f.retval == SUCCESS]
+        if opts.verbose and todo and not several:
+            print(f"{todo[0].display}:", file=sys.stderr)
+        loaded = iter(pool.map(load, todo))
+        ok = []
+        for f in files:
+            if f.retval == NOT_OVERWRITING_ERROR:
+                print(f"  error: '{f.outname}' exists; not overwriting",
+                      file=sys.stderr)
+                continue
+            f.prep, err = next(loaded)
+            if err is None:
+                ok.append(f)
+            elif isinstance(err, OSError):
+                if not opts.using_stdin:
+                    _report_cannot_open(f.name)
+                f.retval = READ_ERROR
+            elif isinstance(err, codec.PngDecodeError):
+                _report_decode_error(err, f.name, opts.using_stdin)
+                f.retval = getattr(err, "exit_code", LIBPNG_FATAL_ERROR)
+            else:
+                raise err
+
+        pending = pipeline.dispatch_buckets(
+            [f.prep.work for f in ok], [f.prep.bpp for f in ok],
+            opts.strength, opts.bleed_divider, mesh=mesh)
+        if opts.verbose and several:
+            # one progress line per bucket, the batched analog of the
+            # reference's per-row spinner (pngloss_image.c:214-237)
+            for pi, p in enumerate(pending):
+                h, wb = p.q.shape[1], p.q.shape[2]
+                print(f"  optimizing bucket {pi + 1}/{len(pending)}: "
+                      f"{len(p.idxs)} image(s) at {wb // p.bpp}x{h}x"
+                      f"{p.bpp}bpp", file=sys.stderr)
+        for j, res, err in pool.drain(pending, finish):
+            if err is not None:
+                raise err
+            if opts.verbose and several:
+                print(f"{ok[j].display}:", file=sys.stderr)
+            _deliver(opts, ok[j], *res, stdout)
+
+    failed = [f.retval for f in files if f.retval != SUCCESS]
+    skipped = sum(r in (TOO_LOW_QUALITY, TOO_LARGE_FILE) for r in failed)
+    _verbose_summary(opts, len(failed) - skipped, skipped, len(files))
+    return failed[-1] if failed else SUCCESS
 
 
 def _verbose_summary(opts, error_count, skipped_count, file_count):
@@ -455,124 +436,37 @@ def _verbose_summary(opts, error_count, skipped_count, file_count):
         print(f"Compressed {file_count} image{s(file_count)}.", file=sys.stderr)
 
 
-def _run_batched(opts, *, mesh) -> int:
-    """Multi-file batched mode, with the same verbose output and exit codes
-    as the sequential path: overwrite guards up front; each file read,
-    decoded and reduced on the host pool (``pipeline.HostPool``), its
-    errors reported in file order; one optimizer call per shape bucket;
-    each bucket's files restored and encoded on the pool as the bucket
-    lands, and written with their verbose lines in file order, each once
-    its own encode is done."""
-    from pngloss_tpu_torch import pipeline
-
-    def load(filename):
-        with tracing.stage("host_read"), open(filename, "rb") as fh:
-            data = fh.read()
-        with tracing.stage("host_decode"):
-            img = codec.decode(data, strip=opts.strip)
-        with tracing.stage("host_reduce"):
-            return data, img, pipeline.reduce_colorspace(img.rgba)
-
-    def encode(j, q_work, f_row):
-        """(PNG bytes, or None where it would not be smaller than its
-        input under --skip-if-larger; the symbol count for -v)."""
-        data, img = ok[j][3:]
-        with tracing.stage("host_restore"):
-            q = pipeline.restore_colorspace(q_work, bpps[j],
-                                            img.rgba.shape[1])
-        n = (pipeline.unique_symbol_count(q, f_row, bpp=bpps[j])
-             if opts.verbose else None)
-        try:
-            with tracing.stage("host_encode"):
-                return codec.encode(
-                    q, row_filters=f_row, gamma=img.gamma,
-                    color_transform=img.color_transform, chunks=img.chunks,
-                    maximum_file_size=len(data) - 1
-                    if opts.skip_if_larger else 0), n
-        except codec.TooLargeFile:
-            return None, n
-
-    entries = []  # [filename, outname, retval, bytes|None, DecodedImage|None]
-    for filename in opts.files:
-        outname = opts.output_file_path or add_filename_extension(
-            filename, opts.extension)
-        guarded = not opts.force and os.path.exists(outname)
-        entries.append([filename, outname,
-                        NOT_OVERWRITING_ERROR if guarded else SUCCESS,
-                        None, None])
-
-    with pipeline.HostPool() as pool:
-        loaded = iter(pool.map(load, [e[0] for e in entries
-                                      if e[2] == SUCCESS]))
-        ok, works, bpps = [], [], []
-        for e in entries:
-            if e[2] == NOT_OVERWRITING_ERROR:
-                print(f"  error: '{e[1]}' exists; not overwriting",
-                      file=sys.stderr)
-                continue
-            payload, err = next(loaded)
-            if err is None:
-                e[3], e[4], (work, bpp) = payload
-                ok.append(e)
-                works.append(work)
-                bpps.append(bpp)
-            elif isinstance(err, OSError):
-                _report_cannot_open(e[0])
-                e[2] = READ_ERROR
-            elif isinstance(err, codec.PngDecodeError):
-                _report_decode_error(err, e[0])
-                e[2] = getattr(err, "exit_code", LIBPNG_FATAL_ERROR)
-            else:
-                raise err
-
-        pending = pipeline.dispatch_buckets(
-            works, bpps, opts.strength, opts.bleed_divider, mesh=mesh)
+def _deliver(opts, f: _File, out, n, stdout) -> None:
+    """A finished file's -v lines and its PNG written to stdout or its
+    output file."""
+    img, data = f.prep.img, f.prep.data
+    if opts.verbose:
+        _report_input_color(img, len(data))
+        print("  compression complete", file=sys.stderr)
+        print(f"  used {n} unique symbols", file=sys.stderr)
+    if isinstance(out, codec.TooLargeFile):
         if opts.verbose:
-            # one progress line per bucket, the batched analog of the
-            # reference's per-row spinner (pngloss_image.c:214-237)
-            for pi, p in enumerate(pending):
-                h, wb = p.q.shape[1], p.q.shape[2]
-                print(f"  optimizing bucket {pi + 1}/{len(pending)}: "
-                      f"{len(p.idxs)} image(s) at {wb // p.bpp}x{h}x"
-                      f"{p.bpp}bpp", file=sys.stderr)
-        tracing.count("cli.encode_workers", pool.workers)
-        for j, res, err in pool.drain(pending, encode):
-            if err is not None:
-                raise err
-            out, n = res
-            e = ok[j]
-            filename, outname, _, data, img = e
-            if opts.verbose:
-                print(f"{filename}:", file=sys.stderr)
-                _report_input_color(img, len(data))
-                print("  compression complete", file=sys.stderr)
-                print(f"  used {n} unique symbols", file=sys.stderr)
-            if out is None:
-                if opts.verbose:
-                    kb = (len(data) - 1 + 500) // 1000
-                    print(f"  file exceeded maximum size of {kb}KB",
-                          file=sys.stderr)
-                e[2] = TOO_LARGE_FILE
-                continue
-            if opts.verbose:
-                print(f"  writing compressed image as {outname}",
-                      file=sys.stderr)
-            with tracing.stage("host_write"):
-                e[2] = _write_atomic(outname, out)
-            if e[2] == SUCCESS:
-                _print_wrote(opts, out, data, img)
-
-    error_count = skipped_count = 0
-    latest_error = SUCCESS
-    for e in entries:
-        if e[2] != SUCCESS:
-            latest_error = e[2]
-            if e[2] in (TOO_LOW_QUALITY, TOO_LARGE_FILE):
-                skipped_count += 1
-            else:
-                error_count += 1
-    _verbose_summary(opts, error_count, skipped_count, len(entries))
-    return latest_error
+            kb = (len(data) - 1 + 500) // 1000
+            print(f"  file exceeded maximum size of {kb}KB", file=sys.stderr)
+        f.retval = TOO_LARGE_FILE
+        if f.outname is None:
+            # the oversized attempt, then the original 24-bit image, as
+            # the reference streams them (pngloss.c:290-297)
+            stdout.write(out.data + codec.encode(
+                img.rgba, row_filters=None, gamma=img.gamma,
+                color_transform=img.color_transform, chunks=img.chunks))
+        return
+    if opts.verbose:
+        print("  writing compressed image to stdout" if f.outname is None
+              else f"  writing compressed image as {f.outname}",
+              file=sys.stderr)
+    with tracing.stage("host_write"):
+        if f.outname is None:
+            stdout.write(out)
+        else:
+            f.retval = _write_atomic(f.outname, out)
+    if f.retval == SUCCESS:
+        _print_wrote(opts, out, data, img)
 
 
 def main() -> None:

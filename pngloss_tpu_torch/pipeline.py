@@ -12,9 +12,11 @@ pool. On CUDA the dispatch never waits for the card, in either mode: each
 bucket's upload (from pinned memory), kernels and copies back into pinned
 host memory are queued on one stream of its device's small pool
 (``parallel.mesh.bucket_stream``), the buckets longest chain first, so
-the short buckets run on the SMs beside the long ones; ``compress_many``
-and the batched command encode each bucket as its copy lands
-(``HostPool``). Each shard chunks itself by its
+the short buckets run on the SMs beside the long ones. Every call from
+PNG bytes to PNG bytes, ``compress_many`` and the command for one file or
+many, takes one path: ``prepare`` each input on the ``HostPool``,
+``dispatch_buckets``, then ``finish`` each image on the pool as its
+bucket's copy lands (``HostPool.drain``). Each shard chunks itself by its
 own device's free memory. Output bytes equal ``pngloss_tpu.pipeline``'s,
 whatever the pool size and the order.
 
@@ -352,7 +354,13 @@ def unique_symbol_count(q_rgba: np.ndarray, row_filters: np.ndarray,
         work, bpp = reduce_colorspace(q_rgba)
     else:
         work = pack_work(q_rgba, bpp)
-    h, wb = work.shape
+    return symbol_count(work, row_filters, bpp)
+
+
+def symbol_count(work: np.ndarray, row_filters: np.ndarray, bpp: int) -> int:
+    """``unique_symbol_count`` of an optimized working plane (H, W*bpp),
+    as the optimizer returns it."""
+    h = work.shape[0]
     rows = work.astype(np.int32)
     # no sequential dependency: row y's predictor reads only the known
     # quantized row y-1, so the five predictor planes vectorize over the
@@ -407,6 +415,42 @@ def optimize_with_stride(buffer: np.ndarray, width: int, height: int,
 
 
 @dataclasses.dataclass
+class Prepared:
+    """An input PNG as the optimizer takes it (``prepare``)."""
+    data: bytes                  # the input file's bytes
+    img: codec.DecodedImage
+    work: np.ndarray             # (H, W*bpp) uint8 working plane
+    bpp: int
+
+
+def prepare(data: bytes, strip: bool = False) -> Prepared:
+    """Decode an input PNG and reduce it to its working plane (the
+    colorspace detection of optimize_with_rows, pngloss_image.c:64-121).
+    Raises ``codec.PngDecodeError``."""
+    with tracing.stage("host_decode"):
+        img = codec.decode(data, strip=strip)
+    with tracing.stage("host_reduce"):
+        work, bpp = reduce_colorspace(img.rgba)
+    return Prepared(data, img, work, bpp)
+
+
+def finish(prep: Prepared, q_work: np.ndarray, f_row: np.ndarray,
+           skip_if_larger: bool = False) -> bytes:
+    """The output PNG of ``prep``'s optimized plane and row filters: its
+    colorspace restored, encoded with the input's gamma, colour transform
+    and chunks. Raises ``codec.TooLargeFile`` where ``skip_if_larger`` is
+    set and the output would not be smaller than the input."""
+    img = prep.img
+    with tracing.stage("host_restore"):
+        rgba = restore_colorspace(q_work, prep.bpp, img.rgba.shape[1])
+    with tracing.stage("host_encode"):
+        return codec.encode(
+            rgba, row_filters=f_row, gamma=img.gamma,
+            color_transform=img.color_transform, chunks=img.chunks,
+            maximum_file_size=len(prep.data) - 1 if skip_if_larger else 0)
+
+
+@dataclasses.dataclass
 class CompressResult:
     """Per-file outcome of a batch compression run."""
     data: bytes | None = None          # compressed PNG, or None on error/skip
@@ -442,9 +486,9 @@ def compress_many(files, strength=19, bleed: int = 2, *,
     raises ``CudaUnavailableError``), or split over the devices of ``mesh``
     (``parallel.data_mesh``), which, when given, replaces ``device``.
 
-    decode and colorspace reduce on the host pool -> queue each shape
-      bucket on the device -> per bucket, as its host copy lands: encode
-      on the host pool (``HostPool``)
+    ``prepare`` on the host pool -> queue each shape bucket on the device
+      -> per bucket, as its host copy lands: ``finish`` on the host pool
+      (``HostPool``)
 
     strength: one int, or one per file.
     """
@@ -454,67 +498,38 @@ def compress_many(files, strength=19, bleed: int = 2, *,
 
 
 def _compress_many(files, strength, bleed, strip, skip_if_larger, mesh):
-    results = [CompressResult() for _ in files]
+    results = [CompressResult(input_size=len(d)) for d in files]
     per_image_strength = not np.isscalar(strength)
     if per_image_strength:
         strength = list(strength)
         if len(strength) != len(files):
             raise ValueError("one strength per file expected")
 
-    def _decode(data: bytes):
-        with tracing.stage("host_decode"):
-            img = codec.decode(data, strip=strip)
-        with tracing.stage("host_reduce"):
-            return img, reduce_colorspace(img.rgba)
-
-    def _encode(j: int, q_work: np.ndarray, f_row: np.ndarray) -> bytes:
-        img = decoded[ok_idx[j]][0][0]
-        with tracing.stage("host_restore"):
-            rgba = restore_colorspace(q_work, bpps[j], widths[j])
-        max_size = len(files[ok_idx[j]]) - 1 if skip_if_larger else 0
-        with tracing.stage("host_encode"):
-            return codec.encode(
-                rgba, row_filters=f_row, gamma=img.gamma,
-                color_transform=img.color_transform, chunks=img.chunks,
-                maximum_file_size=max_size)
-
-    # dedup identical inputs (the suite's same-file-many-strengths
-    # pattern): decode + colorspace-reduce each distinct byte string once
-    distinct: dict[bytes, list[int]] = {}
-    for i, d in enumerate(files):
-        distinct.setdefault(d, []).append(i)
     with HostPool() as pool:
-        uniq = pool.map(_decode, list(distinct))
-        decoded: list = [None] * len(files)
-        for idxs, res in zip(distinct.values(), uniq):
-            for i in idxs:
-                decoded[i] = res
-
-        ok_idx, works, bpps, widths = [], [], [], []
-        for i, (payload, err) in enumerate(decoded):
-            results[i].input_size = len(files[i])
-            if err is not None:
-                results[i].error = err
-            else:
-                img, (work, bpp) = payload
+        # identical inputs (the suite's same-file-many-strengths pattern)
+        # are prepared once
+        distinct = list(dict.fromkeys(files))
+        prepared = dict(zip(distinct, pool.map(
+            lambda d: prepare(d, strip), distinct)))
+        ok_idx = []
+        for i, d in enumerate(files):
+            results[i].error = prepared[d][1]
+            if results[i].error is None:
                 ok_idx.append(i)
-                works.append(work)
-                bpps.append(bpp)
-                widths.append(img.rgba.shape[1])
-        if not ok_idx:
-            return results
 
+        ok = [prepared[files[i]][0] for i in ok_idx]
         s_ok = ([strength[i] for i in ok_idx] if per_image_strength
                 else strength)
-        pending = dispatch_buckets(works, bpps, s_ok, bleed, mesh=mesh)
-        for j, out, err in pool.drain(pending, _encode):
+        pending = dispatch_buckets([p.work for p in ok], [p.bpp for p in ok],
+                                   s_ok, bleed, mesh=mesh)
+        for j, out, err in pool.drain(pending, lambda j, q, f: finish(
+                ok[j], q, f, skip_if_larger)):
             r = results[ok_idx[j]]
-            if err is not None:      # TooLargeFile and friends
-                r.error = err
-                continue
-            r.data, r.output_size = out, len(out)
-            r.metadata_size = sum(len(c.data) + 12
-                                  for c in decoded[ok_idx[j]][0][0].chunks)
+            r.error = err            # TooLargeFile and friends
+            if err is None:
+                r.data, r.output_size = out, len(out)
+                r.metadata_size = sum(len(c.data) + 12
+                                      for c in ok[j].img.chunks)
     return results
 
 
@@ -532,8 +547,9 @@ class HostPool:
     bucket's images as its host copy lands, while later buckets are still
     on the card. The native codec's inflate and deflate release the GIL,
     so the pool scales with real cores. Work submitted runs inside the
-    caller's open span (``tracing.carry``). ``compress_many`` and the
-    batched command share it; use it as a context manager."""
+    caller's open span (``tracing.carry``); a call of one item or one
+    image runs in the calling thread. ``compress_many`` and the command
+    run on it; use it as a context manager."""
 
     def __init__(self):
         self.workers = host_workers()
@@ -557,23 +573,32 @@ class HostPool:
     def drain(self, pending, encode):
         """As each of the ``pending`` buckets lands (``landed``), submits
         ``encode(j, q_work, f_row)`` for each of its images ``j``
-        (``_PendingBucket.idxs``) to the pool. Yields (j, result, None) or
-        (j, None, the exception it raised), in the order of ``j``, each
-        once its encode is done: the ones already done after each landing,
-        the rest once every bucket has landed."""
+        (``_PendingBucket.idxs``) to the pool, or runs it in the calling
+        thread where there is one image. Yields (j, result, None) or (j,
+        None, the exception it raised), in the order of ``j``, each once
+        its encode is done: the ones already done after each landing, the
+        rest once every bucket has landed."""
         run = tracing.carry(lambda *a: _try(encode, *a))
         futs = [None] * sum(len(p.idxs) for p in pending)
+        submit = self._pool.submit if len(futs) > 1 else _now
         nxt = 0
         for p in landed(pending):
             qb, fb = _bucket_arrays(p)
             for k, j in enumerate(p.idxs):
-                futs[j] = self._pool.submit(run, j, qb[k], fb[k])
+                futs[j] = submit(run, j, qb[k], fb[k])
             while nxt < len(futs) and futs[nxt] is not None \
                     and futs[nxt].done():
                 yield nxt, *futs[nxt].result()
                 nxt += 1
         for j in range(nxt, len(futs)):
             yield j, *futs[j].result()
+
+
+def _now(fn, *args):
+    """``fn(*args)`` run in the calling thread, as a done future."""
+    fut = _futures.Future()
+    fut.set_result(fn(*args))
+    return fut
 
 
 def _try(fn, *args):

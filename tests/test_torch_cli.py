@@ -78,6 +78,17 @@ CASES = {
         (["-fv", "-s", "19", "-b", "2", "-"], "a.png", 0),
         (["-fv", "-s", "19", "c.png"], None, 0),
     ]),
+    # one file's name before its read and decode errors, for stdin too
+    "verbose_errors": ([], [
+        (["-fv", "missing.png"], None, 2),
+        (["-fv", "bad.png"], None, 25),
+        (["-fv", "-"], "bad.png", 25),
+    ]),
+    # one file's verbose lines around the stdout fallback and an -o write
+    "verbose_outputs": ([], [
+        (["-fv", "-s", "0", "--skip-if-larger", "-"], "a.png", 98),
+        (["-v", "-s", "19", "-o", "out.png", "c.png"], None, 0),
+    ]),
     "strip": ([], [
         (["-fv", "-s", "19", "--strip", "-"], "m.png", 0),
         (["-fv", "-s", "19", "-"], "m.png", 0),
