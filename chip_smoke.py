@@ -2614,7 +2614,10 @@ def cut_checks(device, planes, bpp: int, w: int, h: int, n: int, log,
     once), and the image kernel's CLI variant and its ladder (at the k it
     picks) over rows 1..n-1 at full width, from the whole image's pre-pass
     and row 0, the kernels stopping at h_real = n on the whole plane (the
-    rows after it 0). All on a stream of its own, which it alone waits
+    rows after it 0). The CLI variant's carry-out besides: the whole image
+    band by band at ``pipeline.band_rows`` (rows and filters equal to one
+    launch's), and the bands of rows 1 and 2 (rows, filters and the four
+    carry tensors equal to the plain version's on the same inputs). All on a stream of its own, which it alone waits
     for, in inference mode (the plain versions launch kernel by kernel
     from the host, and autograd's dispatch is ~15% of each launch's host
     time). ``beside()`` (run 2) runs in a thread of its own beside row 0's
@@ -2636,6 +2639,7 @@ def _cut_checks(device, planes, bpp, w, h, n, log, beside):
 
     import torch
 
+    from pngloss_tpu_torch import pipeline
     from pngloss_tpu_torch.ops import hist, image, row
     from pngloss_tpu_torch.ops.optimize_gpu import row0
 
@@ -2710,12 +2714,54 @@ def _cut_checks(device, planes, bpp, w, h, n, log, beside):
                                  f"{plain.tolist()}")
         return {**out, "k": k1, "rounds": rounds.tolist(), "h": n}
 
+    def check_bands():
+        # CLI mode's one-image call runs its rows in bands (carry_out):
+        # the whole plane band by band at the call's band, then two bands
+        # of one row against the plain version on the same inputs
+        band = pipeline.band_rows(wb)
+        t0 = time.perf_counter()
+        one = image.image_rows(*args, h_real=hr)
+        carry, got = args[5:], []
+        for y0 in range(0, h, band):
+            lo, y1 = max(y0, 1), min(y0 + band, h)
+            if y1 > lo:
+                q, f, carry = image.image_rows(
+                    *args[:4], rows[:, lo - 1:y1], *carry, h_real=hr,
+                    in_flight=1, carry_out=True)
+                got.append((q, f))
+        err = _max_err([torch.cat([g[k] for g in got], 1) for k in (0, 1)],
+                       [one[0][:, :h - 1], one[1][:, :h - 1]])
+        if err:
+            raise AssertionError(f"[14] {len(got)} bands of {band} rows "
+                                 f"differ from one launch by {err}")
+        t1 = time.perf_counter()
+        carry = args[5:]
+        for lo in (1, 2):
+            cut = (*args[:4], rows[:, lo - 1:lo + 1], *carry)
+            got = image.image_rows(*cut, h_real=hr, in_flight=1,
+                                   carry_out=True)
+            want = image.image_rows_ref(*cut, h_real=hr, carry_out=True)
+            err = _max_err([got[0], got[1], *got[2]],
+                           [want[0], want[1], *want[2]])
+            if err:
+                raise AssertionError(f"[14] the band of row {lo}: rows, "
+                                     f"filters or carry (qprev, e0, e1, "
+                                     f"hist) differ from the plain "
+                                     f"version's by {err}")
+            carry = got[2]
+        log(f"  bands: rows 1-{h - 1} in bands of {band} rows == one launch "
+            f"({t1 - t0:.1f} s); the bands of rows 1 and 2 (rows, filters, "
+            f"qprev, e0, e1, hist) == the plain version "
+            f"({time.perf_counter() - t1:.1f} s); max abs err 0")
+        return {"band": band, "bands": h // band + (h % band > 0)}
+
     out = {"hist": check_hist()}
     with ThreadPoolExecutor(1) as pool:
         run2 = pool.submit(beside)
         out["row_retry"] = check_row0()
         done = run2.result()
-    out.update(image=check_image(), image_retry=check_ladder())
+    out.update(image=check_image(), image_retry=check_ladder(),
+               bands=check_bands())
     return out, done
 
 
@@ -2746,9 +2792,11 @@ def large_image(device, name: str, rgba: np.ndarray, n: int, card: str,
         f"[14] {name} compress_many", CLI_KERNELS,
         lambda: pipeline.compress_many([png], STRENGTH, device=device))
     launches = cli["launches"]
+    # one image a call runs its rows in bands, one image launch a band
+    bands = -(-h // pipeline.band_rows(planes.shape[2]))
     if (launches["hist"], launches["row_retry"], launches["image"],
             launches["row"], launches["image_adaptive"],
-            launches["image_retry"]) != (1, 1, 1, 0, 0, 0):
+            launches["image_retry"]) != (1, 1, bands, 0, 0, 0):
         raise AssertionError(f"[14] {name} compress_many launched {launches}")
     out_png = res.unwrap()
     if decode(out_png).rgba.shape != rgba.shape:

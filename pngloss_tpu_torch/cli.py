@@ -361,17 +361,18 @@ def _run_files(opts, stdin, stdout, device, mesh) -> int:
                     data = fh.read()
         return pipeline.prepare(data, opts.strip)
 
-    def finish(j, q_work, f_row):
+    def finish(j, q_work, f_row, landing=None):
         """(the PNG, or the codec.TooLargeFile raised under
-        --skip-if-larger; the symbol count for -v)."""
+        --skip-if-larger; the symbol count for -v, read once every row has
+        landed)."""
         prep = ok[j].prep
-        n = (pipeline.symbol_count(q_work, f_row, prep.bpp)
-             if opts.verbose else None)
         try:
-            return pipeline.finish(prep, q_work, f_row,
-                                   opts.skip_if_larger), n
+            out = pipeline.finish(prep, q_work, f_row, opts.skip_if_larger,
+                                  landing)
         except codec.TooLargeFile as e:
-            return e, n
+            out = e
+        return out, (pipeline.symbol_count(q_work, f_row, prep.bpp)
+                     if opts.verbose else None)
 
     with pipeline.HostPool() as pool:
         todo = [f for f in files if f.retval == SUCCESS]

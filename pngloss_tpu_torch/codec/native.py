@@ -34,6 +34,8 @@ _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "native")
 _SO_PATH = os.path.join(_NATIVE_DIR, "libpngloss_host.so")
+# the sources of the library's Makefile target
+_SOURCES = ("pngloss_host.cpp", "fast_deflate.cpp")
 
 _TRANSFORM_TO_CODE = {COLOR_NONE: 0, COLOR_SRGB: 1, COLOR_GAMA_ONLY: 2}
 _CODE_TO_TRANSFORM = {v: k for k, v in _TRANSFORM_TO_CODE.items()}
@@ -63,9 +65,10 @@ def load():
         if os.environ.get("PNGLOSS_NO_NATIVE"):
             _load_failed = True
             return None
-        src = os.path.join(_NATIVE_DIR, "pngloss_host.cpp")
         if (not os.path.exists(_SO_PATH)
-                or os.path.getmtime(_SO_PATH) < os.path.getmtime(src)):
+                or os.path.getmtime(_SO_PATH) < max(
+                    os.path.getmtime(os.path.join(_NATIVE_DIR, src))
+                    for src in _SOURCES)):
             if not _build():
                 _load_failed = True
                 return None

@@ -80,7 +80,11 @@
 // which the barrier does not order (as in ladder_kernel below): the chain
 // only ever reads rows its own block wrote. Only the winner writes filt; the
 // previous row's winner's block copies that row to qrows off its chain, and
-// block 0 writes the padded rows.
+// block 0 writes the padded rows. Where the launch passes a carry, the last
+// row's winner's block also writes the state that row leaves (its histogram,
+// next dither rows and row), so that a later launch
+// on the rows after it continues the chain: a one-image call runs its rows in
+// bands, each band's rows final and copied to the host while the next runs.
 //
 // ladder_kernel: the attempts of one row at strengths s, s-1, ... all start
 // from the same state (the previous row's winner row, dither rows and
@@ -300,8 +304,8 @@ image_kernel(const int* __restrict__ s, int bleed,
              const uint8_t* __restrict__ rows,
              const int* __restrict__ qprev0, const int* __restrict__ e00,
              const int* __restrict__ e10, const int* __restrict__ hist0,
-             int* __restrict__ qrows, int* __restrict__ filt, int* cand,
-             int* e0n5, int* e1n5, int B, int H, int W) {
+             int* __restrict__ qrows, int* __restrict__ filt, int* carry,
+             int* cand, int* e0n5, int* e1n5, int B, int H, int W) {
   __shared__ int os[plk::kFilters][256];      // rank keys (rank_keys)
   __shared__ int hw[256];                     // histogram at row start
   __shared__ long long cost[kPerBlock];       // this block's filters' costs
@@ -405,6 +409,21 @@ image_kernel(const int* __restrict__ s, int bleed,
   if (hr >= 2 && rank == prev_win / kPerBlock)
     for (long long i = tid; i < wb; i += kThreads)
       my_q[(hr - 2) * wb + i] = qprev[i];
+  // the state the last real row leaves (row 0's, where no row ran): the B
+  // histograms, then the B next dither rows e0, the B e1 and the B rows
+  if (carry && rank == prev_win / kPerBlock) {
+    for (int i = tid; i < 256; i += kThreads) carry[b * 256 + i] = hw[i];
+    int4* c0 = reinterpret_cast<int4*>(carry + B * 256LL + b * we);
+    int4* c1 = reinterpret_cast<int4*>(carry + B * (256LL + we) + b * we);
+    const int4* s0 = reinterpret_cast<const int4*>(e0);
+    const int4* s1 = reinterpret_cast<const int4*>(e1);
+    for (int i = tid; i < W + 5; i += kThreads) {
+      c0[i] = s0[i];
+      c1[i] = s1[i];
+    }
+    int* cq = carry + B * (256LL + 2 * we) + b * wb;
+    for (long long i = tid; i < wb; i += kThreads) cq[i] = qprev[i];
+  }
   if (rank == 0) zero_padded(b, hr, H, wb, tid, qrows, filt);
   // no block may leave while another can still read its shared memory
   cluster.sync();
@@ -414,8 +433,8 @@ image_kernel(const int* __restrict__ s, int bleed,
 
 using SplitFn = void (*)(const int*, int, const int*, const int*, const int*,
                          const uint8_t*, const int*, const int*, const int*,
-                         const int*, int*, int*, int*, int*, int*, int, int,
-                         int);
+                         const int*, int*, int*, int*, int*, int*, int*, int,
+                         int, int);
 
 cudaError_t split_kernel_of(int bpp, SplitFn* kernel) {
   switch (bpp) {
@@ -725,13 +744,18 @@ extern "C" int plk_image_rows(const void* s, int bleed, const void* w_real,
 // CLI mode on split::image_kernel, a cluster of 2 blocks per image;
 // arguments as for plk_image_rows (ok, attempts, rounds and never_pass are
 // the other variants' and are not taken; k = 1 in the scratch's shape).
+// carry, null or B * (256 + 2 * (W+5) * 4 + W * bpp) int32, 16-byte
+// aligned, gets the state each image's last real row leaves: the B
+// histograms, then the B next dither rows e0 (B, W+5, 4), the B e1, and the
+// B rows (B, W, bpp).
 extern "C" int plk_image_split(const void* s, int bleed, const void* w_real,
                                const void* h_real, const void* ofreq,
                                const void* rows, const void* qprev0,
                                const void* e00, const void* e10,
                                const void* hist0, void* qrows, void* filt,
-                               void* cand, void* e0n5, void* e1n5, int B,
-                               int H, int W, int bpp, void* stream) {
+                               void* carry, void* cand, void* e0n5,
+                               void* e1n5, int B, int H, int W, int bpp,
+                               void* stream) {
   if (B <= 0 || H < 2) return static_cast<int>(cudaGetLastError());
   SplitFn kernel = nullptr;
   cudaLaunchAttribute attr;
@@ -746,8 +770,8 @@ extern "C" int plk_image_split(const void* s, int bleed, const void* w_real,
       static_cast<const int*>(qprev0), static_cast<const int*>(e00),
       static_cast<const int*>(e10), static_cast<const int*>(hist0),
       static_cast<int*>(qrows), static_cast<int*>(filt),
-      static_cast<int*>(cand), static_cast<int*>(e0n5),
-      static_cast<int*>(e1n5), B, H, W);
+      static_cast<int*>(carry), static_cast<int*>(cand),
+      static_cast<int*>(e0n5), static_cast<int*>(e1n5), B, H, W);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

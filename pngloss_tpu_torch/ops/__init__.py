@@ -13,7 +13,11 @@ import numpy as np
 import torch
 
 from pngloss_tpu_torch import tracing
-from pngloss_tpu_torch.ops.optimize_gpu import optimize_batch, to_device
+from pngloss_tpu_torch.ops.optimize_gpu import (
+    optimize_bands,
+    optimize_batch,
+    to_device,
+)
 
 
 class CudaUnavailableError(RuntimeError):
@@ -67,5 +71,5 @@ def optimize_batch_auto(rows, strength, bleed: int = 2, *, bpp: int, device,
                           w_real=w_real, h_real=h_real, in_flight=in_flight)
 
 
-__all__ = ["CudaUnavailableError", "optimize_batch", "optimize_batch_auto",
-           "resolve_device"]
+__all__ = ["CudaUnavailableError", "optimize_bands", "optimize_batch",
+           "optimize_batch_auto", "resolve_device"]

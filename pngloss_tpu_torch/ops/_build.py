@@ -52,7 +52,7 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P),
     "plk_ladder_clusters": (_I, _I, _P),
-    "plk_image_split": (_P, _I, *(_P,) * 13, _I, _I, _I, _I, _P),
+    "plk_image_split": (_P, _I, *(_P,) * 14, _I, _I, _I, _I, _P),
     "plk_split_clusters": (_I, _P),
 }
 

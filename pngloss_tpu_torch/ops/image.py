@@ -86,9 +86,11 @@ def _heights(h_real, b: int, h: int, device) -> torch.Tensor:
 
 def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
                    hist0, adaptive: bool = False, count=None,
-                   never_pass=None, h_real=None):
+                   never_pass=None, h_real=None, carry_out: bool = False):
     """Plain version; arguments as for ``image_rows``; ``count`` as for
-    ``quantize_row``, over rows 1..H-1 (padded rows too).
+    ``quantize_row``, over rows 1..H-1 (padded rows too). With
+    ``carry_out`` (CLI mode) it also returns the state each image's last
+    real row leaves, as ``image_rows`` does.
 
     The row step (the 5 candidates, and with ``adaptive`` their MSAD
     self-check) reads and writes fixed buffers. On a CUDA tensor it is
@@ -102,6 +104,8 @@ def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
     filts = torch.zeros((b, h - 1), dtype=torch.int32, device=dev)
     ok = torch.ones(b, dtype=torch.int32, device=dev)
     hr = _heights(h_real, b, h, dev)
+    # the state after each image's last real row (qprev, e0, e1, hist)
+    carry = [t.clone() for t in (qprev0, e00, e10, hist0)]
     if h >= 2:
         orig = rows.view(b, h, w, bpp).to(torch.int32)
         orow, qprev, e0, e1, hist = (t.clone() for t in
@@ -130,7 +134,14 @@ def image_rows_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10,
                 buf.copy_(pick(cand, best))
             qrows[:, y - 1] = torch.where(live[:, None, None], qprev, 0)
             filts[:, y - 1] = torch.where(live, best, 0)
-    return (qrows, filts, ok) if adaptive else (qrows, filts)
+            if carry_out:
+                last = hr - 1 == y
+                for kept, buf in zip(carry, (qprev, e0, e1, hist)):
+                    at = last.view(-1, *([1] * (buf.dim() - 1)))
+                    kept.copy_(torch.where(at, buf, kept))
+    if adaptive:
+        return qrows, filts, ok
+    return (qrows, filts, tuple(carry)) if carry_out else (qrows, filts)
 
 
 def image_rows_retry_ref(s, bleed: int, w_real, ofreq, rows, qprev0, e00,
@@ -328,7 +339,8 @@ def takes_split(n: int, bpp: int, device) -> bool:
 
 def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
                adaptive: bool = False, retry: bool = False, never_pass=None,
-               h_real=None, k=None, rounds=None, in_flight=None):
+               h_real=None, k=None, rounds=None, in_flight=None,
+               carry_out: bool = False):
     """s, w_real (B,) int32; ofreq (B, 5, 256) int32; rows (B, H, W*bpp)
     uint8 originals of the whole images; the row-0 winner state: qprev0
     (B, W, bpp), e00, e10 (B, W+5, 4), hist0 (B, 256), all int32.
@@ -348,8 +360,14 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
     has on the card at once, this launch's among them (None: this launch's
     B), which pick the layout (``takes_split``); while tracing, the
     launch's images and those of them that took the split layout are
-    counted to the open request (``image.images``, ``image.split``). A
-    CUDA tensor launches the kernel; a CPU tensor runs the plain version."""
+    counted to the open request (``image.images``, ``image.split``). With
+    ``carry_out`` (CLI mode; on the card the split layout) it returns,
+    third, the state each image's last real row leaves (row 0's where it
+    has no other), (qprev (B, W, bpp), e0, e1 (B, W+5, 4), hist (B, 256)),
+    which a call on the rows after it takes as its row-0 state: the rows of
+    one image in bands, band by band, give one call's rows. Such a launch
+    is a band, not an image: its caller counts the image. A CUDA tensor
+    launches the kernel; a CPU tensor runs the plain version."""
     global LAUNCHES, ADAPTIVE_LAUNCHES, RETRY_LAUNCHES, SPLIT_LAUNCHES
     if retry and not adaptive:
         raise ValueError("retry needs adaptive: only the MSAD self-check "
@@ -359,8 +377,8 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
                          "self-check can fail a row")
     if (k is not None or rounds is not None) and not retry:
         raise ValueError("k and rounds are the retry variant's")
-    if in_flight is not None and adaptive:
-        raise ValueError("in_flight is CLI mode's")
+    if (in_flight is not None or carry_out) and adaptive:
+        raise ValueError("in_flight and carry_out are CLI mode's")
     if _build.route(rows) == "cpu":
         if retry:
             return image_rows_ladder_ref(s, bleed, w_real, ofreq, rows,
@@ -369,7 +387,7 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
                                          h_real, rounds)
         return image_rows_ref(s, bleed, w_real, ofreq, rows, qprev0, e00,
                               e10, hist0, adaptive, never_pass=never_pass,
-                              h_real=h_real)
+                              h_real=h_real, carry_out=carry_out)
     b, h, wb = rows.shape
     w, bpp = qprev0.shape[1], qprev0.shape[2]
     if h < 2 or w * bpp != wb or not 1 <= bpp <= 4 or bleed < 1:
@@ -413,6 +431,11 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
     attempts = torch.empty(b, dtype=i32, device=dev) if retry else None
     lib = _build.library()
     split = not adaptive and takes_split(max(b, in_flight or 0), bpp, dev)
+    if carry_out and not split:
+        raise ValueError("carry_out needs the split layout")
+    we = (w + 5) * 4
+    carry = (torch.empty(b * (256 + 2 * we + w * bpp), dtype=i32,
+                         device=dev) if carry_out else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -426,7 +449,7 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
     with torch.cuda.device(dev):
         if split:
             _build.check(lib.plk_image_split(
-                *inputs, *scratch, _build.stream_ptr(rows)),
+                *inputs, ptr(carry), *scratch, _build.stream_ptr(rows)),
                 "plk_image_split")
         else:
             _build.check(lib.plk_image_rows(
@@ -441,6 +464,10 @@ def image_rows(s, bleed: int, w_real, ofreq, rows, qprev0, e00, e10, hist0,
         return qrows, filt, ok
     LAUNCHES += 1
     SPLIT_LAUNCHES += split
-    tracing.count("image.images", b)
-    tracing.count("image.split", b if split else 0)
-    return qrows, filt
+    if not carry_out:
+        tracing.count("image.images", b)
+        tracing.count("image.split", b if split else 0)
+        return qrows, filt
+    hist, e0, e1, qprev = carry.split([b * 256, b * we, b * we, b * w * bpp])
+    return qrows, filt, (qprev.view(b, w, bpp), e0.view(b, w + 5, 4),
+                         e1.view(b, w + 5, 4), hist.view(b, 256))

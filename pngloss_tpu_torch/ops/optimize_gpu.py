@@ -176,6 +176,71 @@ def _optimize_chunk(rows, strength, bleed: int, bpp: int, w_real, h_real,
     return q.view(b, h, wb), f
 
 
+def optimize_bands(rows, strength: int, bleed: int, *, bpp: int, device,
+                   h_real: int, w_real: int, band: int):
+    """CLI mode for one image whose rows run in bands, or None where they
+    cannot: on a CUDA device only the split layout carries a band's state
+    out, and there it must take one image at ``bpp``
+    (``image.takes_split``); the caller then runs the image in one launch.
+    rows (1, H, W*bpp) uint8, numpy or tensor, goes to ``device`` as in
+    ``ops.optimize_batch_auto``; strength, its real height h_real and
+    width w_real are ints. The pre-pass and row 0 as in ``optimize_batch``,
+    then rows 1..h_real-1 in bands of ``band`` rows (the first holds row
+    0), each one ``image.image_rows`` launch from the state the band before
+    it left (``carry_out``). Returns a generator whose every step queues
+    a band's work on the current stream, then yields (y1, q, f), the
+    image's output q (1, H, W*bpp) uint8 and f (1, H) int8, whose rows
+    before y1 are final once that work has run; rows at and after h_real
+    are not written. Nothing
+    here waits for the card, and a band queues three launches: the image
+    kernel and the copies of its rows and filters into q and f. The image
+    is counted once to the open request, as ``image_rows`` counts a
+    launch's images."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not image_op.takes_split(1, bpp, dev):
+        return None
+    return _bands(rows, strength, bleed, bpp, dev, h_real, w_real, band)
+
+
+def _bands(rows, strength, bleed, bpp, device, h_real, w_real, band):
+    """``optimize_bands``' generator."""
+    with tracing.stage("ops.upload"):
+        rows = to_device(rows, device)
+        dev = rows.device
+        # h_t, the image's real height, is each band's too: the kernel
+        # and its plain version take every row of a band as real
+        strength, w_real, h_t = (
+            torch.full((1,), int(v), dtype=torch.int32, device=dev)
+            for v in (strength, w_real, h_real))
+    _, h, wb = rows.shape
+    w = wb // bpp
+    if dev.type == "cuda":
+        tracing.count("image.images", 1)
+        tracing.count("image.split", 1)
+    with tracing.stage("ops.hist"):
+        ofreq = hist_op.original_frequencies(rows, bpp, w_real, h_t)
+    with tracing.stage("ops.row0"):
+        orig0 = rows[:, 0].reshape(1, w, bpp).to(torch.int32)
+        c0, f0 = row0(strength, bleed, orig0, ofreq, w_real)
+        q = torch.empty((1, h, wb), dtype=torch.uint8, device=dev)
+        f = torch.empty((1, h), dtype=torch.int8, device=dev)
+        q[:, 0].copy_(c0.qprev.reshape(1, wb))
+        f[:, 0].copy_(f0)
+    carry = (c0.qprev, c0.e0, c0.e1, c0.hist)
+    for y0 in range(0, h_real, band):
+        y1 = min(y0 + band, h_real)
+        lo = max(y0, 1)
+        if y1 > lo:
+            with tracing.stage("ops.image"):
+                # the band's originals, the row before them first
+                qrows, filt, carry = image_op.image_rows(
+                    strength, bleed, w_real, ofreq, rows[:, lo - 1:y1],
+                    *carry, h_real=h_t, in_flight=1, carry_out=True)
+                q[:, lo:y1].copy_(qrows.view(1, y1 - lo, wb))
+                f[:, lo:y1].copy_(filt)
+        yield y1, q, f
+
+
 def optimize_batch(rows, strength, bleed: int = 2, *, bpp: int,
                    use_row_filters: bool = True, w_real=None, h_real=None,
                    in_flight=None):

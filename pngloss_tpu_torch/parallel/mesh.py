@@ -47,6 +47,7 @@ from pngloss_tpu_torch.ops import (
 # (PERF.md)
 STREAMS = 16
 _streams: dict = {}
+_copy_streams: dict = {}
 _streams_lock = threading.Lock()
 
 
@@ -63,6 +64,18 @@ def bucket_stream(device, slot):
         while len(pool) < STREAMS:
             pool.append(torch.cuda.Stream(device))
         return torch.cuda.stream(pool[slot % STREAMS])
+
+
+def copy_stream(device) -> torch.cuda.Stream:
+    """A CUDA device's stream for copies that wait on events of the
+    bucket streams (made at first use): a one-image call's bands go to
+    the host on it, so that the bucket's stream runs the next band's
+    kernel without waiting for the copy."""
+    device = _indexed(torch.device(device))
+    with _streams_lock:
+        if device not in _copy_streams:
+            _copy_streams[device] = torch.cuda.Stream(device)
+        return _copy_streams[device]
 
 
 def _indexed(device: torch.device) -> torch.device:

@@ -16,9 +16,12 @@ the short buckets run on the SMs beside the long ones. Every call from
 PNG bytes to PNG bytes, ``compress_many`` and the command for one file or
 many, takes one path: ``prepare`` each input on the ``HostPool``,
 ``dispatch_buckets``, then ``finish`` each image on the pool as its
-bucket's copy lands (``HostPool.drain``). Each shard chunks itself by its
-own device's free memory. Output bytes equal ``pngloss_tpu.pipeline``'s,
-whatever the pool size and the order.
+bucket's copy lands (``HostPool.drain``). A call of one image in CLI mode
+runs its rows in bands (``band_rows``) and encodes them as they land, so
+that only the last band's encode is left after the card's last row. Each
+shard chunks itself by its own device's free memory. Output bytes equal
+``pngloss_tpu.pipeline``'s, whatever the pool size, the order and the
+bands.
 
 The host helpers below are copies of ``pngloss_tpu.pipeline``'s: the port
 imports nothing of the JAX package.
@@ -35,8 +38,10 @@ import numpy as np
 import torch
 
 from pngloss_tpu_torch import codec, tracing
+from pngloss_tpu_torch.codec import stream as stream_codec
+from pngloss_tpu_torch.ops import optimize_bands
 from pngloss_tpu_torch.parallel import optimize_batch_sharded, resolve_mesh
-from pngloss_tpu_torch.parallel.mesh import bucket_stream
+from pngloss_tpu_torch.parallel.mesh import bucket_stream, copy_stream
 
 
 def working_bpp(rgba: np.ndarray) -> int:
@@ -135,6 +140,9 @@ class _PendingBucket:
     # while tracing: (counter name, host (B,) tensor) copied back before
     # the events, counted when the bucket lands
     counts: list = dataclasses.field(default_factory=list)
+    # a one-image bucket run in bands: (y1, the CUDA event recorded after
+    # the copy of its rows before y1, or None on the CPU) for each band
+    bands: list = dataclasses.field(default_factory=list)
 
 
 def _gather_to_host(qs, fs, slot=None):
@@ -189,6 +197,76 @@ def dispatch_order(keys):
     return sorted(keys, key=lambda k: -k[0] * k[1])
 
 
+# working-plane bytes of a band of a one-image call's rows, and the fewest
+# rows a band takes: a band's restart (a launch, its blocks' set-up) costs
+# ~20 us against the ~1.5-3 ms a row of a screenshot or a photo takes on
+# the card, and the host's encode of a band of ~256 KiB keeps pace with it
+BAND_BYTES = 256 << 10
+MIN_BAND_ROWS = 16
+
+
+def band_rows(wb: int) -> int:
+    """The rows of a band of a one-image call whose rows are ``wb`` bytes
+    of working plane."""
+    return max(MIN_BAND_ROWS, BAND_BYTES // wb)
+
+
+def _dispatch_bands(work, bpp, strength, bleed, device):
+    """``dispatch_buckets`` for one image in CLI mode whose real height
+    spans more than one band (``band_rows``), or None where it does not, or
+    where ``ops.optimize_bands`` cannot run it in bands on ``device``. The
+    bands run on the stream of slot 0; each band's rows and filters go to
+    pinned host memory on the device's copy stream (``copy_stream``),
+    behind an event the band's work recorded, so neither stream waits for
+    the other; the pending bucket's ``bands`` hold each copy's event."""
+    h, wb = work.shape
+    h_pad, wb_pad = pad_dim(h), pad_dim(wb // bpp) * bpp
+    band = band_rows(wb_pad)
+    if h <= band:
+        return None
+    with tracing.stage("host_pack"):
+        batch = np.zeros((1, h_pad, wb_pad), np.uint8)
+        batch[0, :h, :wb] = work
+    runs = optimize_bands(batch, strength, bleed, bpp=bpp, device=device,
+                          h_real=h, w_real=wb // bpp, band=band)
+    if runs is None:
+        return None
+    tracing.count("pipeline.buckets", 1)
+    cuda = device.type == "cuda"
+    qh = fh = copies = None
+    bands = []
+    with tracing.stage(f"device_dispatch_{h_pad}x{wb_pad // bpp}x{bpp}"), \
+            bucket_stream(device, 0):
+        if cuda:
+            qh = torch.empty((1, h_pad, wb_pad), dtype=torch.uint8,
+                             pin_memory=True)
+            fh = torch.empty((1, h_pad), dtype=torch.int8, pin_memory=True)
+            copies = copy_stream(device)
+        for y1, q, f in runs:
+            if not cuda:
+                qh, fh = q, f
+                bands.append((y1, None))
+                continue
+            with tracing.stage("host_gather"):
+                if not bands:
+                    # the copy stream reads them after this stream has
+                    # moved on
+                    q.record_stream(copies)
+                    f.record_stream(copies)
+                ready = torch.cuda.Event()
+                ready.record()
+                copies.wait_event(ready)
+                y0 = bands[-1][0] if bands else 0
+                with torch.cuda.stream(copies):
+                    qh[:, y0:y1].copy_(q[:, y0:y1], non_blocking=True)
+                    fh[:, y0:y1].copy_(f[:, y0:y1], non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                bands.append((y1, done))
+    return _PendingBucket([0], bpp, qh, fh, [(h, wb)],
+                          [bands[-1][1]] if cuda else [], bands=bands)
+
+
 def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
                      use_row_filters: bool = True, device="cuda",
                      mesh=None) -> list[_PendingBucket]:
@@ -213,9 +291,17 @@ def dispatch_buckets(works, bpps, strength, bleed: int = 2, *,
     told that all the call's images are in flight at once, which picks CLI
     mode's layout (``ops.image.pick_split``): buckets that each fit the
     split layout alone but not together would queue behind each other.
-    While tracing, the number of buckets is counted to the open request
-    (``pipeline.buckets``)."""
+    One image in CLI mode whose real height spans more than one band
+    (``band_rows`` of its padded row) runs in bands where it can
+    (``_dispatch_bands``), on the mesh's first device, where a mesh puts
+    one image. While tracing, the number of buckets is counted to the open
+    request (``pipeline.buckets``)."""
     mesh = resolve_mesh(device, mesh)
+    if len(works) == 1 and use_row_filters:
+        p = _dispatch_bands(works[0], bpps[0], strength if np.isscalar(
+            strength) else strength[0], bleed, mesh[0])
+        if p is not None:
+            return [p]
     per_image = not np.isscalar(strength)
     buckets: dict[tuple[int, int, int], list[int]] = {}
     for i, (wk, bpp) in enumerate(zip(works, bpps)):
@@ -283,6 +369,22 @@ def _bucket_arrays(p: _PendingBucket):
     fs = [f[k, :h] for k, (h, _) in enumerate(p.dims)]
     _warn_abort_fallbacks(qs, fs, p.bpp)
     return qs, fs
+
+
+def _landing(p: _PendingBucket):
+    """The rows of the one-image bucket ``p``, which runs in bands, as they
+    land: waits for each band in turn, looking every POLL_S seconds (the
+    stage device_fetch), and yields the end of the rows landed so far.
+    Band 0's rows are checked for abort fallbacks."""
+    wb = p.dims[0][1]
+    for y1, event in p.bands:
+        with tracing.stage("device_fetch"):
+            while event is not None and not event.query():
+                time.sleep(POLL_S)
+        if y1 == p.bands[0][0]:
+            _warn_abort_fallbacks([p.q[0, :y1, :wb].numpy()],
+                                  [p.f[0, :y1].numpy()], p.bpp)
+        yield y1
 
 
 def collect_bucket(p: _PendingBucket):
@@ -435,19 +537,65 @@ def prepare(data: bytes, strip: bool = False) -> Prepared:
 
 
 def finish(prep: Prepared, q_work: np.ndarray, f_row: np.ndarray,
-           skip_if_larger: bool = False) -> bytes:
+           skip_if_larger: bool = False, landing=None) -> bytes:
     """The output PNG of ``prep``'s optimized plane and row filters: its
     colorspace restored, encoded with the input's gamma, colour transform
     and chunks. Raises ``codec.TooLargeFile`` where ``skip_if_larger`` is
-    set and the output would not be smaller than the input."""
+    set and the output would not be smaller than the input. ``landing``,
+    where the rows of q_work and f_row are still landing (one image run in
+    bands): an iterable that yields the end of the rows landed so far as
+    each band lands (``HostPool.drain``'s); each band is encoded as it
+    lands (``_encode_landing``), and the plane is encoded here once every
+    row has landed only where that encode could not run or its output
+    takes another colour type than the plane's. While tracing, the images
+    whose encode streamed are counted to the open request
+    (``encode.streamed``: 1, or 0 for the others)."""
     img = prep.img
+    maximum_file_size = len(prep.data) - 1 if skip_if_larger else 0
+    if landing is None:
+        tracing.count("encode.streamed", 0)
+    else:
+        out = _encode_landing(prep, q_work, f_row, landing,
+                              maximum_file_size)
+        if out is not None:
+            return out
     with tracing.stage("host_restore"):
         rgba = restore_colorspace(q_work, prep.bpp, img.rgba.shape[1])
     with tracing.stage("host_encode"):
         return codec.encode(
             rgba, row_filters=f_row, gamma=img.gamma,
             color_transform=img.color_transform, chunks=img.chunks,
-            maximum_file_size=len(prep.data) - 1 if skip_if_larger else 0)
+            maximum_file_size=maximum_file_size)
+
+
+def _encode_landing(prep: Prepared, q_work, f_row, landing,
+                    maximum_file_size: int):
+    """``finish``'s encode of rows that are still landing: each band fed,
+    as it lands, to a ``codec.stream.EncodeStream`` (spans
+    ``host_encode``). Returns once every row has landed: the PNG, or None
+    where the stream cannot run (no native codec, or its deflate clone
+    off) or its output takes another colour type than the plane's (counted,
+    ``encode.stream_fallbacks``)."""
+    img = prep.img
+    h, wb = prep.work.shape
+    stream = stream_codec.begin(wb // prep.bpp, h, prep.bpp, img.gamma,
+                                img.color_transform, img.chunks)
+    tracing.count("encode.streamed", stream is not None)
+    if stream is None:
+        for _ in landing:
+            pass
+        return None
+    with stream:
+        y0 = 0
+        for y1 in landing:
+            with tracing.stage("host_encode"):
+                stream.rows(q_work[y0:y1], f_row[y0:y1])
+            y0 = y1
+        with tracing.stage("host_encode"):
+            out = stream.end(maximum_file_size)
+    if out is None:
+        tracing.count("encode.stream_fallbacks", 1)
+    return out
 
 
 @dataclasses.dataclass
@@ -522,8 +670,9 @@ def _compress_many(files, strength, bleed, strip, skip_if_larger, mesh):
                 else strength)
         pending = dispatch_buckets([p.work for p in ok], [p.bpp for p in ok],
                                    s_ok, bleed, mesh=mesh)
-        for j, out, err in pool.drain(pending, lambda j, q, f: finish(
-                ok[j], q, f, skip_if_larger)):
+        for j, out, err in pool.drain(
+                pending, lambda j, q, f, landing=None: finish(
+                    ok[j], q, f, skip_if_larger, landing)):
             r = results[ok_idx[j]]
             r.error = err            # TooLargeFile and friends
             if err is None:
@@ -577,9 +726,18 @@ class HostPool:
         thread where there is one image. Yields (j, result, None) or (j,
         None, the exception it raised), in the order of ``j``, each once
         its encode is done: the ones already done after each landing, the
-        rest once every bucket has landed."""
+        rest once every bucket has landed. One image that runs in bands is
+        encoded as they land, in the calling thread: ``encode(j, q_work,
+        f_row, landing)`` gets its host arrays at once and ``_landing``,
+        which waits for each band in turn."""
         run = tracing.carry(lambda *a: _try(encode, *a))
         futs = [None] * sum(len(p.idxs) for p in pending)
+        if len(pending) == 1 and pending[0].bands:
+            p = pending[0]
+            ((h, wb),) = p.dims
+            yield 0, *run(0, p.q[0, :h, :wb].numpy(), p.f[0, :h].numpy(),
+                          _landing(p))
+            return
         submit = self._pool.submit if len(futs) > 1 else _now
         nxt = 0
         for p in landed(pending):

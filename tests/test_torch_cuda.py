@@ -634,6 +634,129 @@ def test_dispatch_buckets_waits_for_nothing(cuda):
     assert _collected(pending) == want
 
 
+def test_dispatch_in_bands_waits_for_nothing(cuda, monkeypatch):
+    """One image whose rows run in bands: ``dispatch_buckets`` makes no
+    host sync and returns before a ~50 ms spin queued ahead of its work on
+    every stream of the pool has ended; its bands land in order, and its
+    rows and filters equal one launch's. A first banded call, unspun,
+    leaves the process's one-time costs (the copy stream, the first use of
+    each kernel) out of the timed one."""
+    from pngloss_tpu_torch import pipeline
+    from pngloss_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(472)
+    work = rng.integers(0, 256, (150, 37 * 3), dtype=np.uint8)
+    want = _collected(pipeline.dispatch_buckets([work], [3], 19,
+                                                device=cuda))
+    monkeypatch.setattr(pipeline, "band_rows", lambda wb: 16)
+    assert _collected(pipeline.dispatch_buckets([work], [3], 19,
+                                                device=cuda)) == want
+    spins = []
+    for slot in range(mesh.STREAMS):
+        with mesh.bucket_stream(cuda, slot):
+            torch.cuda._sleep(100_000_000)     # ~50 ms at 1.98 GHz
+            spins.append(torch.cuda.Event())
+            spins[-1].record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = pipeline.dispatch_buckets([work], [3], 19, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not any(e.query() for e in spins)
+    (p,) = pending
+    assert [y for y, _ in p.bands] == list(range(16, 150, 16)) + [150]
+    assert not p.bands[0][1].query()
+    assert _collected(pending) == want
+
+
+def test_dispatch_in_bands_at_the_photos_height_waits_for_nothing(cuda):
+    """The photo's 143 bands (3000 x 4000 RGB, 21 rows a band) queue
+    without a host sync and without filling the card's launch queue: when
+    ``dispatch_buckets`` returns, at most the first few bands have run (a
+    full queue would have held it back until tens of them had)."""
+    from pngloss_tpu_torch import pipeline
+
+    rng = np.random.default_rng(473)
+    work = rng.integers(0, 256, (3000, 4000 * 3), dtype=np.uint8)
+    work[:, ::2] //= 16
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (p,) = pipeline.dispatch_buckets([work], [3], 19, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ran = sum(bool(e.query()) for _, e in p.bands)
+    assert len(p.bands) == 143
+    p.bands[-1][1].synchronize()
+    assert ran <= 4, ran
+
+
+@pytest.mark.parametrize("h, w", [(1080, 1920), (3000, 4000)])
+def test_one_image_streamed_gives_the_one_shot_bytes(cuda, monkeypatch,
+                                                     h, w):
+    """One RGB image a call at the screenshot's and the photo's sizes: its
+    rows in bands and its encode streamed as they land (counted), then in
+    one launch and one encode after it: the same PNG."""
+    from pngloss_tpu_torch import codec, pipeline, tracing
+
+    rng = np.random.default_rng(h)
+    y, x = np.mgrid[0:h, 0:w]
+    rgb = np.stack([x * 255 // w, y * 255 // h, (x + y) * 255 // (w + h)],
+                   -1) + rng.integers(-6, 7, (h, w, 3))
+    rgba = np.full((h, w, 4), 255, np.uint8)
+    rgba[..., :3] = np.clip(rgb, 0, 255)
+    png = codec.encode(rgba, row_filters=None)
+
+    def counted():
+        first = max((s.id for s in tracing.records()["spans"]), default=0)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            (r,) = pipeline.compress_many([png], 19, device=cuda)
+        roots = {s.id for s in tracing.records()["spans"]
+                 if s.id > first and s.parent is None}
+        got = {}
+        for c in tracing.records()["counts"]:
+            if c.request in roots:
+                got[c.name] = got.get(c.name, 0) + c.n
+        return r.unwrap(), got
+
+    streamed, counts = counted()
+    assert counts == {"pipeline.buckets": 1, "image.images": 1,
+                      "image.split": 1, "encode.streamed": 1}
+    monkeypatch.setattr(pipeline, "band_rows", lambda wb: 1 << 30)
+    one, counts = counted()
+    assert counts["encode.streamed"] == 0
+    assert streamed == one
+
+
+def test_verbose_one_image_in_bands_counts_its_landed_rows(cuda,
+                                                            monkeypatch):
+    """``-v`` on one image whose rows run in bands of 16 (its encode
+    streamed as they land): the output and every line of the report, the
+    symbol count read once every row has landed among them, equal the
+    call's in one launch."""
+    import contextlib
+    import io
+
+    from pngloss_tpu_torch import cli, codec, pipeline
+
+    rgba = np.random.default_rng(474).integers(0, 256, (300, 64, 4),
+                                               dtype=np.uint8)
+    rgba[..., 3] = 255
+    rgba[::2] //= 8
+    png = codec.encode(rgba, row_filters=None)
+    outs = []
+    for band in (16, 1 << 30):
+        monkeypatch.setattr(pipeline, "band_rows", lambda wb, n=band: n)
+        stdout, stderr = io.BytesIO(), io.StringIO()
+        with contextlib.redirect_stderr(stderr):
+            assert cli.run(["-v", "-f", "-s", "19", "-"],
+                           stdin=io.BytesIO(png), stdout=stdout,
+                           device=cuda) == 0
+        outs.append((stdout.getvalue(), stderr.getvalue()))
+    assert "unique symbols" in outs[0][1]
+    assert outs[0] == outs[1]
+
+
 def test_pool_of_one_gives_the_pools_bytes(cuda, monkeypatch):
     """``compress_many`` with one stream a device, in the dispatch order
     of the bucket keys as they first appear, gives the bytes of the pool

@@ -189,7 +189,8 @@ def _profiled():
 def test_run_suite_is_one_request_with_compress_many_under_it(tmp_path):
     """suite.run_suite is the request: the reads, compress_many, each job's
     report and write are its children, and the buckets of its one
-    dispatch are counted to it."""
+    dispatch, and its two images' encodes as not streamed (two images a
+    call), are counted to it."""
     paths = _tiny_files(tmp_path)
     first = max((s.id for s in tracing.records()["spans"]), default=0)
     with _profiled():
@@ -213,7 +214,8 @@ def test_run_suite_is_one_request_with_compress_many_under_it(tmp_path):
     assert order[0][1] == "host_read" and order[1][1] == "pipeline.compress_many"
     counts = [(c.name, c.n) for c in tracing.records()["counts"]
               if c.request == root.id]
-    assert counts == [("pipeline.buckets", 2)]
+    assert counts == [("pipeline.buckets", 2), ("encode.streamed", 0),
+                      ("encode.streamed", 0)]
 
 
 def test_run_suite_records_nothing_untraced(tmp_path, monkeypatch):

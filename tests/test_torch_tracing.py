@@ -219,7 +219,8 @@ def test_batched_cli_spans_its_host_stages(n, tmp_path, monkeypatch):
     """The command is one request: each file's read, decode, reduce,
     restore and encode on the host pool's threads where it has several
     files, in the calling thread where it has one, its write in the
-    calling thread, and the shape buckets counted once."""
+    calling thread, the shape buckets counted once, and each file's
+    encode counted as not streamed (8 rows: too few for a second band)."""
     import threading
 
     from pngloss_tpu_torch import cli
@@ -250,7 +251,8 @@ def test_batched_cli_spans_its_host_stages(n, tmp_path, monkeypatch):
                                       "host_encode")
         assert (s.thread != here) == pooled, s.name
     assert [(c.name, c.n) for c in tracing.records()["counts"]
-            if c.request == root.id] == [("pipeline.buckets", 1)]
+            if c.request == root.id] == [("pipeline.buckets", 1)] + [
+                ("encode.streamed", 0)] * n
 
 
 def test_ladder_counters_equal_the_plain_ladders_sums(monkeypatch):
@@ -289,14 +291,16 @@ def test_ladder_counters_equal_the_plain_ladders_sums(monkeypatch):
 
 
 def test_cli_mode_counts_nothing():
-    """CLI mode counts no ladder counter: a request's only counter is its
-    shape buckets."""
+    """CLI mode counts no ladder counter: a request's only counters are
+    its shape buckets and, for its one image, an encode that did not
+    stream (too few rows for a second band)."""
     first = _last_id()
     with _profiled():
         pipeline.compress_many([_png()], 19, device="cpu")
     (root,) = [s for s in _spans_after(first) if s.parent is None]
     assert [(c.name, c.n) for c in tracing.records()["counts"]
-            if c.request == root.id] == [("pipeline.buckets", 1)]
+            if c.request == root.id] == [("pipeline.buckets", 1),
+                                         ("encode.streamed", 0)]
 
 
 def test_snapshot_reset_leaves_records():
